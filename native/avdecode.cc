@@ -1,4 +1,4 @@
-// avdecode.cc — compressed-codec decode for the triad_tpu input
+// avdecode.cc — compressed-codec decode for the triad input
 // pipeline, linking the system libavcodec directly.
 //
 // The reference consumes libavcodec through torchcodec (video frames,
@@ -10,7 +10,7 @@
 // video -> one RGB frame. One FFI call per file (packet tables are
 // passed as arrays), no intermediate container parsing by ffmpeg.
 //
-// Plain C ABI via ctypes (triad_tpu/data/native.py); the library is
+// Plain C ABI via ctypes (triad/data/native.py); the library is
 // built WITHOUT these entry points when libavcodec headers are absent
 // (Makefile probes; python falls back to cv2/ffmpeg-binary paths).
 

@@ -1,4 +1,4 @@
-// mp4.cc — native ISO-BMFF (MP4/MOV) demuxer for the triad_tpu input
+// mp4.cc — native ISO-BMFF (MP4/MOV) demuxer for the triad input
 // pipeline.
 //
 // The reference delegates MP4 demux/decode to libavcodec via torchcodec
@@ -12,7 +12,7 @@
 // decoder config (esds/avcC) and sample ranges are reported — with
 // decode left to the consumer (cv2 decodes video frames today).
 //
-// Plain C ABI consumed via ctypes (triad_tpu/data/native.py); handle
+// Plain C ABI consumed via ctypes (triad/data/native.py); handle
 // based, no global state, thread-safe for concurrent distinct handles.
 
 #include <cstdint>

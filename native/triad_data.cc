@@ -1,4 +1,4 @@
-// triad_data — native host-side data ops for the triad_tpu input pipeline.
+// triad_data — native host-side data ops for the triad input pipeline.
 //
 // The reference delegates its native-performance data work to external
 // libraries (libavcodec via torchcodec/torchaudio, cuDNN via torch —
@@ -15,7 +15,7 @@
 //     normalization (reference dataset.py:96-133)
 //
 // Exposed as a plain C ABI consumed via ctypes
-// (triad_tpu/data/native.py); OpenMP-free, thread-safe, no global state
+// (triad/data/native.py); OpenMP-free, thread-safe, no global state
 // — the Python thread pool provides the parallelism.
 
 #include <cmath>

@@ -4,9 +4,8 @@ Builds a directory of synthetic MP4 clips (raw-RGB video + PCM audio via
 the ffmpeg-free muxer in data/mp4.py), then measures AVLoader decode
 throughput in clips/s for thread vs process workers at several widths.
 
-The 5k clips/s north star is an aggregate across a v5e-8 pod host
-(~100+ cores); this box exposes {cpus} cores, so the useful output is
-per-worker clips/s and the scaling slope, not the absolute number.
+The useful output is per-worker clips/s and the scaling slope: the
+absolute number depends on the host's core count (printed first).
 
 Run: python scripts/data_throughput.py [num_clips] [seconds_per_clip]
 """
@@ -21,15 +20,15 @@ sys.path.insert(0, ".")
 
 import numpy as np
 
-from triad_tpu.data.datasets import FlatAudioVisualDataset
-from triad_tpu.data.mp4 import mux_mp4
-from triad_tpu.data.pipeline import AVLoader
+from triad.data.datasets import FlatAudioVisualDataset
+from triad.data.mp4 import mux_mp4
+from triad.data.pipeline import AVLoader
 
 
 def build_fixtures(root: str, n: int, secs: float, fps: int = 4) -> None:
     """H.264+AAC clips (real AudioSet's codecs) when libx264 is linked,
     else cv2 mp4v + AAC/PCM remux."""
-    from triad_tpu.data import native
+    from triad.data import native
 
     rng = np.random.default_rng(0)
     frames = (rng.integers(0, 255, size=(int(secs * fps), 64, 64, 3))).astype(
@@ -38,7 +37,7 @@ def build_fixtures(root: str, n: int, secs: float, fps: int = 4) -> None:
     sr = 16_000
     t = np.arange(int(secs * sr)) / sr
     if native.h264_supported():
-        from triad_tpu.data.mp4 import write_video_mp4
+        from triad.data.mp4 import write_video_mp4
 
         for i in range(n):
             audio = (
@@ -92,15 +91,15 @@ def run_packed(
     """Full-shape packed-pipeline measurement: TriadPack shard ->
     AVLoader (augmentation on) -> Prefetcher (device_put) at B=64,
     sustained over >= ``seconds`` wall seconds. This is the number to
-    compare against the chip's eval consumption (bench.py clips/s/chip):
+    compare against the device's eval consumption (bench.py clips/s):
     the loader must outrun it."""
     import tempfile
 
     import jax
 
-    from triad_tpu.data.datasets import SyntheticAVDataset
-    from triad_tpu.data.packed import PackedAVDataset, pack_dataset
-    from triad_tpu.data.pipeline import Prefetcher, cycling
+    from triad.data.datasets import SyntheticAVDataset
+    from triad.data.packed import PackedAVDataset, pack_dataset
+    from triad.data.pipeline import Prefetcher, cycling
 
     audio_samples = int(audio_secs * 16_000)
     tmp = tempfile.mkdtemp(prefix="triad_pack_bench_")
@@ -122,7 +121,7 @@ def run_packed(
         )
         put = None
         if device_augment:
-            from triad_tpu.data.device_aug import device_ingest_av
+            from triad.data.device_aug import device_ingest_av
 
             put = device_ingest_av
         it = Prefetcher(

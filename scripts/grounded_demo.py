@@ -40,21 +40,21 @@ def main() -> None:
         token_id,
         tv_batch_at,
     )
-    from triad_tpu.core.config import LossConfig, OptimConfig
-    from triad_tpu.data.datasets import (
+    from triad.core.config import LossConfig, OptimConfig
+    from triad.data.datasets import (
         GroundedSyntheticAVDataset,
         GroundedSyntheticSpec,
         GroundedSyntheticTVDataset,
     )
-    from triad_tpu.models import TriadModel, init_triad_model
-    from triad_tpu.ops import pairwise_similarity
-    from triad_tpu.train import (
+    from triad.models import TriadModel, init_triad_model
+    from triad.ops import pairwise_similarity
+    from triad.train import (
         OptimizerBank,
         ParamPartition,
         StepFactory,
         init_train_state,
     )
-    from triad_tpu.viz.heatmaps import AudioVisualizer, TextVisualizer
+    from triad.viz.heatmaps import AudioVisualizer, TextVisualizer
 
     cfg = grounded_model_config()
     spec = GroundedSyntheticSpec(num_classes=K)

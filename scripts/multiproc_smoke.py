@@ -46,13 +46,18 @@ def worker() -> None:
 
     jax.config.update("jax_platforms", "cpu")
 
+    # identical tiny graphs recur across phases — share compiles
+    from triad.cli.common import enable_compile_cache
+
+    enable_compile_cache()
+
     import dataclasses
     from pathlib import Path
 
     import numpy as np
 
-    from triad_tpu.core.config import MeshConfig
-    from triad_tpu.parallel.distributed import initialize_from_env
+    from triad.core.config import MeshConfig
+    from triad.parallel.distributed import initialize_from_env
 
     pid, pc = initialize_from_env()
     print(f"process {pid}/{pc} devices={jax.device_count()} "
@@ -60,7 +65,7 @@ def worker() -> None:
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from tests.test_trainer import tiny_config
-    from triad_tpu.train.trainer import Trainer
+    from triad.train.trainer import Trainer
 
     cfg = tiny_config(Path(os.environ["TRIAD_SMOKE_DIR"]))
     tp = 2 if os.environ.get("TRIAD_SMOKE_TP") else 1
@@ -105,7 +110,7 @@ def worker() -> None:
     # temperature + whole-tree checksum pin the final parameters; both
     # must match the single-process reference bit-for-bit-ish (the only
     # tolerated difference is collective reduction order).
-    from triad_tpu.parallel.distributed import fetch
+    from triad.parallel.distributed import fetch
 
     temp = float(fetch(trainer.state.params["temperature"]))
     leaves = jax.tree_util.tree_leaves(trainer.state.params)
@@ -119,8 +124,6 @@ def _spawn(env_extra, tag):
     env["XLA_FLAGS"] = (
         f"--xla_force_host_platform_device_count={DEVICES_PER_PROCESS}"
     )
-    # identical tiny graphs recur across phases — share compiles
-    env.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_multiproc_cache")
     env.update(env_extra)
     return subprocess.Popen(
         [sys.executable, os.path.abspath(__file__)],
@@ -142,8 +145,8 @@ def _run_workers(run_dir, tag, env_extra=None, expect_final=True):
 
     Retries ONCE on gloo rendezvous timeouts: on a slow/1-core box a
     cold compile cache can skew the workers' first-collective entry
-    past gloo's hardcoded 30 s store timeout (CPU-only test-infra
-    artifact — TPU pods don't use gloo); the retry runs with the warm
+    past gloo's hardcoded 30 s store timeout (a CPU-only test-infra
+    artifact — GPU collectives use NCCL); the retry runs with the warm
     cache, so the skew is gone. Any other failure raises immediately.
     """
     for attempt in (1, 2, 3):

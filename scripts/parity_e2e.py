@@ -1,10 +1,9 @@
-"""End-to-end parity harness: triad_tpu vs the torch reference pipeline.
+"""End-to-end parity harness: triad vs the torch reference pipeline.
 
-VERDICT round 1, item 3: "Build the full reference pipeline in torch (HF
-modules from config + the reference's exact loss/train code path per
-model.py:474-608) and the triad_tpu pipeline, share ported weights, and
-run BASELINE configs 1-4 end-to-end ... compare losses per step and
-R@1/5/10".
+Builds the full reference pipeline in torch (HF modules from config +
+the reference's exact loss/train code path per model.py:474-608) and
+the triad pipeline, shares ported weights, runs BASELINE configs 1-4
+end-to-end, and compares losses per step and R@1/5/10.
 
 The torch side is tests/torch_reference.py (reference MultiModalModel
 clone: HF HuBERT/DistilBERT from config, hub-layout DINOv2 + real peft
@@ -20,7 +19,7 @@ Legs (BASELINE.json configs):
             text<->audio (model.py:610-637)
   4 retr    N-way retrieval, all four directions: torch = the
             reference's per-pair aggregation loop (retrieval.py:159-175)
-            vs triad_tpu's vectorized eval; ranks must agree. Plus the
+            vs triad's vectorized eval; ranks must agree. Plus the
             viz heatmap tensor (squaring quirk, viz.py:58-71).
   5 train   K joint train steps with the reference's 4-group AdamW +
             OneCycle + subtree clipping (train.py:246-348, 988-1040) on
@@ -51,7 +50,7 @@ def parity_model_cfg(size: str):
     on both frameworks; eval legs are dropout-free anyway)."""
     import dataclasses
 
-    from triad_tpu.core.config import (
+    from triad.core.config import (
         DistilBertConfig,
         HubertConfig,
         ModelConfig,
@@ -119,8 +118,8 @@ class Harness:
         import torch
 
         from tests.torch_reference import build_reference_model, port_to_triad
-        from triad_tpu.core.config import LossConfig
-        from triad_tpu.models import TriadModel
+        from triad.core.config import LossConfig
+        from triad.models import TriadModel
 
         self.size = size
         self.cfg = parity_model_cfg(size)
@@ -132,8 +131,8 @@ class Harness:
         if ref_ckpt:
             # A REAL reference checkpoint file: load it into BOTH sides —
             # the torch clone (so the comparison is against the actual
-            # trained weights) and triad_tpu via the production import.
-            from triad_tpu.models.reference_import import (
+            # trained weights) and triad via the production import.
+            from triad.models.reference_import import (
                 load_reference_checkpoint,
                 strip_compile_prefix,
             )
@@ -162,7 +161,7 @@ class Harness:
 
     def _port_via_file(self, seed: int):
         """Round-trip the torch state through an on-disk reference-format
-        checkpoint file (VERDICT round 2, missing #1 mitigation): write
+        checkpoint file: write
         the exact payload the reference's save_checkpoint produces
         (train.py:398-437 — a monolithic dict with ``model_state_dict``,
         optimizer/scheduler states, counters, RNG blobs), with keys
@@ -175,7 +174,7 @@ class Harness:
 
         import torch
 
-        from triad_tpu.models.reference_import import (
+        from triad.models.reference_import import (
             load_reference_checkpoint,
         )
 
@@ -214,7 +213,7 @@ class Harness:
 
         @jax.jit
         def run(params, img, audio, ids, mask):
-            from triad_tpu.models.multimodal import TriadModel as TM
+            from triad.models.multimodal import TriadModel as TM
 
             return self.model.apply(
                 {"params": params}, img, audio, ids, mask, train=False
@@ -243,7 +242,7 @@ class Harness:
         """Config 1: image-text fwd + TV loss."""
         import torch
 
-        from triad_tpu.ops import tv_loss
+        from triad.ops import tv_loss
         import jax.numpy as jnp
 
         img, audio, ids, mask = make_media(
@@ -254,7 +253,7 @@ class Harness:
             out["text"], out["visual"], jnp.asarray(mask),
             self.params["temperature"], self.loss_cfg,
         )
-        from triad_tpu.ops.similarity import aggregate_crossbatch
+        from triad.ops.similarity import aggregate_crossbatch
 
         clip_ours = np.asarray(
             aggregate_crossbatch(
@@ -286,7 +285,7 @@ class Harness:
         """Config 2: audio-visual fwd + AV loss."""
         import torch
 
-        from triad_tpu.ops import av_loss
+        from triad.ops import av_loss
 
         img, audio, ids, mask = make_media(
             self.cfg, self.B, self.audio_samples, self.text_len, seed=1
@@ -296,7 +295,7 @@ class Harness:
             out["audio"], out["visual"], self.params["temperature"],
             self.loss_cfg,
         )
-        from triad_tpu.ops.similarity import aggregate_crossbatch
+        from triad.ops.similarity import aggregate_crossbatch
 
         clip_ours = np.asarray(
             aggregate_crossbatch(
@@ -336,7 +335,7 @@ class Harness:
 
         @jax.jit
         def run(params, img, audio, ids, mask):
-            from triad_tpu.models.multimodal import TriadModel as TM
+            from triad.models.multimodal import TriadModel as TM
 
             return self.model.apply(
                 {"params": params},
@@ -371,12 +370,12 @@ class Harness:
         import torch.nn.functional as F
 
         from tests.torch_oracle import oracle_retrieval_aggregate
-        from triad_tpu.eval.retrieval import (
+        from triad.eval.retrieval import (
             av_retrieval_metrics,
             compute_recall_at_k,
             tv_retrieval_metrics,
         )
-        from triad_tpu.viz.heatmaps import patches_to_heatmaps
+        from triad.viz.heatmaps import patches_to_heatmaps
 
         temp = float(self.params["temperature"])
         # Embed n items (batched to bound memory at full size).
@@ -397,7 +396,7 @@ class Harness:
         masks = np.ones((n, a.shape[1]), np.float32)
         t_mask = np.ones((n, t.shape[1]), np.float32)
 
-        # ours: vectorized blocked eval (triad_tpu/eval/retrieval.py)
+        # ours: vectorized blocked eval (triad/eval/retrieval.py)
         ours_av = av_retrieval_metrics(
             a / np.linalg.norm(a, axis=-1, keepdims=True),
             masks,
@@ -440,7 +439,7 @@ class Harness:
                 out[f"d_{direction}_{k}"] = abs(ours_m - ref_m[k])
 
         # viz heatmaps: normalized sims + the squaring quirk
-        from triad_tpu.ops.similarity import pairwise_similarity
+        from triad.ops.similarity import pairwise_similarity
         from tests.torch_oracle import oracle_pairwise_similarity
         import jax.numpy as jnp
 
@@ -477,8 +476,8 @@ class Harness:
         from torch.nn.utils import clip_grad_norm_
 
         from tests.torch_oracle import oracle_av_loss, oracle_tv_loss
-        from triad_tpu.core.config import OptimConfig
-        from triad_tpu.train import (
+        from triad.core.config import OptimConfig
+        from triad.train import (
             OptimizerBank,
             ParamPartition,
             StepFactory,

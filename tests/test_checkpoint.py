@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from triad_tpu.train.checkpoint import (
+from triad.train.checkpoint import (
     CheckpointManager,
     HostProgress,
     warn_on_config_mismatch,
@@ -84,7 +84,7 @@ def test_async_save_then_restore(tmp_path, state):
 
 
 def test_read_run_meta(tmp_path, state):
-    from triad_tpu.train.checkpoint import read_run_meta
+    from triad.train.checkpoint import read_run_meta
 
     run = tmp_path / "run"
     mgr = CheckpointManager(str(run / "checkpoints"))

@@ -5,7 +5,7 @@ import json
 
 import pytest
 
-from triad_tpu.cli.train import apply_overrides, build_config
+from triad.cli.train import apply_overrides, build_config
 
 
 def _ns(**kw):
@@ -68,8 +68,8 @@ def test_infer_cli_trimodal(tmp_path):
     import numpy as np
 
     from tests.test_multimodal import small_model_config
-    from triad_tpu.cli.infer import main as infer_main
-    from triad_tpu.core.config import Config, DataConfig
+    from triad.cli.infer import main as infer_main
+    from triad.core.config import Config, DataConfig
     import dataclasses
 
     cfg = Config(

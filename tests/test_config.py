@@ -1,121 +1,99 @@
-"""Config helpers: the tuned perf presets stay in sync with the knob
-compositions the benches use, and the shipped scale YAML resolves to
-the tuned training kernels."""
+"""Config helpers: the perf presets, the shipped scale YAML, and the
+loader's handling of retired and unknown fields."""
 
 import dataclasses
 from pathlib import Path
 
-from triad_tpu.core.config import (
-    ModelConfig,
-    perf_eval_model_config,
-    perf_train_model_config,
-)
+import pytest
+
+from triad.core.config import ModelConfig, h100_model_config
 
 REPO = Path(__file__).resolve().parent.parent
 
 
 def test_perf_train_config_is_the_measured_knob_set():
-    # == scripts/tpu_train_bench.py knobs "perf,attnpad" (perf already
-    # carries posconv+wavext; docs/TRAINING_PERF.md: 634.9 -> 491.9 ->
-    # 461.8 -> 452.4 -> 442.6 ms at B=64 across rounds 2-3).
+    # The choice on the H100: the flash kernel with in-kernel dropout in
+    # the ViT and HuBERT, XLA for the 32 text tokens, parity defaults
+    # elsewhere (PERF.md).
     base = ModelConfig()
     expected = dataclasses.replace(
         base,
-        vit=dataclasses.replace(
-            base.vit, mlp_impl="fused", mlp_gelu="tanh",
-            attention_impl="fused_packed", attention_pad="none",
-        ),
-        hubert=dataclasses.replace(
-            base.hubert, mlp_gelu="tanh", attention_impl="fused_packed",
-            frontend_impl="monolithic", frontend_gelu="tanh",
-            posconv_impl="pallas", frontend_wave_layout="xt",
-            attention_pad="none",
-        ),
+        vit=dataclasses.replace(base.vit, attention_impl="flash"),
+        hubert=dataclasses.replace(base.hubert, attention_impl="flash"),
     )
-    assert perf_train_model_config() == expected
+    assert h100_model_config() == expected
 
 
-def test_perf_eval_config_carries_round3_winners():
-    cfg = perf_eval_model_config()
-    assert cfg.hubert.frontend_wave_layout == "xt"
-    assert cfg.hubert.attention_pad == "none"
-    assert cfg.vit.attention_pad == "none"
-    from triad_tpu.core.config import perf_eval_loss_config
+def test_perf_eval_config_uses_flash_attention():
+    cfg = h100_model_config()
+    assert (cfg.vit.attention_impl, cfg.hubert.attention_impl,
+            cfg.text.attention_impl) == ("flash", "flash", "xla")
+    from triad.core.config import perf_eval_loss_config
 
     assert perf_eval_loss_config().implementation == "chunked_unrolled"
     assert perf_eval_loss_config().chunk_size == 32
-    # r4: bf16 token-sim volume (653.2 vs 646.1 same-day, r4c bench_vdt)
     assert perf_eval_loss_config().volume_dtype == "bfloat16"
 
 
 def test_perf_presets_keep_parity_defaults_elsewhere():
-    # The presets may only touch kernel-dispatch / numerics-contract
+    # The preset may only touch kernel-dispatch / numerics-contract
     # knobs — architecture fields must match the parity defaults.
-    base = ModelConfig()
-    for preset in (perf_train_model_config(), perf_eval_model_config()):
-        assert preset.hubert.num_layers == base.hubert.num_layers
-        assert preset.vit.num_layers == base.vit.num_layers
-        assert preset.hubert.conv_dim == base.hubert.conv_dim
-        assert preset.embedding_dim == base.embedding_dim
-        assert preset.compute_dtype == base.compute_dtype
-        assert preset.param_dtype == base.param_dtype
+    base, preset = ModelConfig(), h100_model_config()
+    assert preset.hubert.num_layers == base.hubert.num_layers
+    assert preset.vit.num_layers == base.vit.num_layers
+    assert preset.hubert.conv_dim == base.hubert.conv_dim
+    assert preset.embedding_dim == base.embedding_dim
+    assert preset.compute_dtype == base.compute_dtype
+    assert preset.param_dtype == base.param_dtype
 
 
-def test_v5e8_yaml_resolves_to_tuned_train_kernels():
-    from triad_tpu.cli.train import load_config_file, _deep_update
-    from triad_tpu.core.config import Config
+def _scale_config():
+    from triad.cli.train import _deep_update, load_config_file
+    from triad.core.config import Config
 
-    cfg_dict = load_config_file(str(REPO / "configs" / "v5e8_scale.yaml"))
+    cfg_dict = load_config_file(str(REPO / "configs" / "h100_scale.yaml"))
     base = Config().to_dict()
     _deep_update(base, cfg_dict)
-    cfg = Config.from_dict(base)
-    tuned = perf_train_model_config()
-    assert cfg.model.hubert.attention_impl == tuned.hubert.attention_impl
-    assert cfg.model.hubert.frontend_impl == tuned.hubert.frontend_impl
-    assert cfg.model.hubert.mlp_gelu == tuned.hubert.mlp_gelu
-    assert cfg.model.vit.attention_impl == tuned.vit.attention_impl
-    assert cfg.model.vit.mlp_impl == tuned.vit.mlp_impl
-    assert cfg.model.vit.mlp_gelu == tuned.vit.mlp_gelu
-    assert cfg.mesh.num_devices == 8
-    assert cfg.data.batch_size_av == 512
-    # r5 codification: bf16 chunk volumes in the train loss VJP
-    # (447.2 -> 441.1 ms same-session A/B at B=64).
-    assert cfg.loss.implementation == "chunked_vjp"
-    assert cfg.loss.chunk_size == 32
-    assert cfg.loss.volume_dtype == "bfloat16"
+    return Config.from_dict(base)
 
 
-def test_apply_train_knobs_shared_parser():
-    """The A/B knob parser shared by tpu_train_bench and
-    tpu_profile_trace: composition applies, unknown names raise (a typo
-    must not silently measure/trace the baseline)."""
-    import pytest
+def test_scale_yaml_resolves_to_tuned_train_kernels():
+    cfg = _scale_config()
+    assert cfg.model == h100_model_config()
+    assert cfg.mesh.num_devices == 4
+    assert cfg.data.batch_size_av == 256
 
-    from triad_tpu.core.config import ModelConfig, apply_train_knobs
 
-    c = apply_train_knobs(ModelConfig(), "perf,posconv,wave640,mqkv,vitmq")
-    assert c.hubert.attention_impl == "fused_packed_merged"
-    assert c.vit.attention_impl == "fused_packed_merged"
-    assert c.hubert.posconv_impl == "pallas"
-    assert c.hubert.frontend_wave_layout == "x640"
-    assert c.hubert.frontend_impl == "monolithic"  # from perf
-    with pytest.raises(ValueError, match="unknown train knobs"):
-        apply_train_knobs(ModelConfig(), "mqkvv")
-    # iterables work too, and no knobs is the parity config
-    assert apply_train_knobs(ModelConfig(), []) == ModelConfig()
+@pytest.mark.parametrize("section,field", [
+    ("hubert", "mlp_impl"), ("hubert", "posconv_impl"),
+    ("hubert", "frontend_wave_layout"), ("vit", "attention_pad"),
+    ("vit", "mlp_block_rows"),
+])
+def test_retired_fields_are_dropped_on_load(section, field):
+    """A config saved with a field that selected a removed kernel loads
+    with that field dropped (old checkpoints carry them)."""
+    from triad.core.config import Config
+
+    d = Config().to_dict()
+    d["model"][section][field] = "anything"
+    assert Config.from_dict(d) == Config()
+
+
+def test_unknown_field_still_raises():
+    from triad.core.config import Config
+
+    d = Config().to_dict()
+    d["model"]["hubert"]["not_a_field"] = 1
+    with pytest.raises(KeyError, match="not_a_field"):
+        Config.from_dict(d)
 
 
 def test_perf_train_loss_config_matches_yaml():
-    """perf_train_loss_config() and configs/v5e8_scale.yaml must agree —
-    one source of truth for the codified training loss path (the
-    harnesses import the helper; the Trainer reads the yaml)."""
-    from triad_tpu.cli.train import _deep_update, load_config_file
-    from triad_tpu.core.config import Config, perf_train_loss_config
+    """perf_train_loss_config() and configs/h100_scale.yaml must agree —
+    one source of truth for the codified training loss path."""
+    from triad.core.config import perf_train_loss_config
 
-    cfg_dict = load_config_file(str(REPO / "configs" / "v5e8_scale.yaml"))
-    base = Config().to_dict()
-    _deep_update(base, cfg_dict)
-    cfg = Config.from_dict(base)
+    cfg = _scale_config()
     helper = perf_train_loss_config()
     assert cfg.loss.implementation == helper.implementation
     assert cfg.loss.chunk_size == helper.chunk_size

@@ -4,7 +4,7 @@ augmentations, loaders, prefetch, resume cursor."""
 import numpy as np
 import pytest
 
-from triad_tpu.data import (
+from triad.data import (
     AVLoader,
     Prefetcher,
     SyntheticAVDataset,
@@ -165,7 +165,7 @@ class TestLoaders:
 
 class TestUniqueVideoSampler:
     def test_no_duplicate_videos_in_batch(self):
-        from triad_tpu.data.pipeline import UniqueVideoSampler
+        from triad.data.pipeline import UniqueVideoSampler
 
         ids = [0, 0, 0, 1, 1, 2, 2, 3, 4, 5, 6, 7]
         s = UniqueVideoSampler(ids, batch_size=4, seed=1, epoch=0)
@@ -175,7 +175,7 @@ class TestUniqueVideoSampler:
             assert len(set(vids)) == len(vids)
 
     def test_deterministic_per_epoch(self):
-        from triad_tpu.data.pipeline import UniqueVideoSampler
+        from triad.data.pipeline import UniqueVideoSampler
 
         ids = list(range(16))
         a = UniqueVideoSampler(ids, 4, seed=0, epoch=3)
@@ -187,7 +187,7 @@ class TestUniqueVideoSampler:
         assert not np.array_equal(a.batch_indices(0), c.batch_indices(0))
 
     def test_av_loader_integration(self):
-        from triad_tpu.data import AVLoader, SyntheticAVDataset
+        from triad.data import AVLoader, SyntheticAVDataset
 
         ds = SyntheticAVDataset(size=8, audio_seconds=0.5)
         loader = AVLoader(
@@ -198,15 +198,40 @@ class TestUniqueVideoSampler:
         assert len(batches) == 1  # only 4 unique videos fit one batch
 
 
+class _PlatformProbe:
+    """Picklable dataset whose items report the worker's JAX backend."""
+
+    def __len__(self):
+        return 1
+
+    def __getitem__(self, idx, apply_augmentation=False, rng=None):
+        import jax
+
+        return jax.config.jax_platforms, jax.default_backend()
+
+
 class TestWorkerPool:
+    def test_process_workers_keep_jax_on_cpu(self, monkeypatch):
+        """Spawned decode workers never initialize an accelerator, even
+        when the parent's environment names one: the trainer process
+        holds the card's memory."""
+        from triad.data.workers import WorkerPool
+
+        monkeypatch.setenv("JAX_PLATFORMS", "cuda")
+        pool = WorkerPool(_PlatformProbe(), 1, mode="process")
+        try:
+            assert pool.map([0], augment=False) == [("cpu", "cpu")]
+        finally:
+            pool.close()
+
     @pytest.mark.slow
     def test_process_pool_matches_thread_pool(self):
         """Spawned decode workers produce the same (deterministic,
         augmentation-off) batches as the in-process thread pool."""
         import numpy as np
 
-        from triad_tpu.data.datasets import SyntheticAVDataset
-        from triad_tpu.data.pipeline import AVLoader
+        from triad.data.datasets import SyntheticAVDataset
+        from triad.data.pipeline import AVLoader
 
         def make(mode):
             ds = SyntheticAVDataset(
@@ -250,7 +275,7 @@ class TestDeterministicAugmentation:
         return str(root)
 
     def test_augmented_epoch_is_reproducible(self, caption_tree):
-        from triad_tpu.data import LocalCaptionDataset, TVLoader, WordPieceTokenizer
+        from triad.data import LocalCaptionDataset, TVLoader, WordPieceTokenizer
 
         def make():
             ds = LocalCaptionDataset(caption_tree)
@@ -269,7 +294,7 @@ class TestDeterministicAugmentation:
             np.testing.assert_array_equal(x["images"], y["images"])
 
     def test_resumed_batches_bitwise_equal_augmented(self, caption_tree):
-        from triad_tpu.data import LocalCaptionDataset, TVLoader, WordPieceTokenizer
+        from triad.data import LocalCaptionDataset, TVLoader, WordPieceTokenizer
 
         ds = LocalCaptionDataset(caption_tree)
         tok = WordPieceTokenizer.build_from_corpus(
@@ -286,7 +311,7 @@ class TestDeterministicAugmentation:
         )
 
     def test_different_epochs_differ(self, caption_tree):
-        from triad_tpu.data import LocalCaptionDataset, TVLoader, WordPieceTokenizer
+        from triad.data import LocalCaptionDataset, TVLoader, WordPieceTokenizer
 
         ds = LocalCaptionDataset(caption_tree)
         tok = WordPieceTokenizer.build_from_corpus(["caption number 1"])
@@ -301,7 +326,7 @@ class TestDeterministicAugmentation:
 
 class TestVideoIdDerivation:
     def test_strips_trailing_clip_indices(self):
-        from triad_tpu.data.pipeline import video_id_from_path
+        from triad.data.pipeline import video_id_from_path
 
         assert video_id_from_path("/x/ytid_30_40.mp4") == "ytid"
         assert video_id_from_path("/x/abc123_7.mp4") == "abc123"
@@ -310,7 +335,7 @@ class TestVideoIdDerivation:
         assert video_id_from_path("/x/12345.mp4") == "12345"
 
     def test_av_loader_derives_ids_from_dataset(self):
-        from triad_tpu.data.pipeline import AVLoader
+        from triad.data.pipeline import AVLoader
 
         class StubDs:
             video_files = [

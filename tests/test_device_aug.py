@@ -10,9 +10,9 @@ import tempfile
 import numpy as np
 import pytest
 
-from triad_tpu.data.datasets import SyntheticAVDataset
-from triad_tpu.data.packed import PackedAVDataset, pack_dataset
-from triad_tpu.data.pipeline import AVLoader
+from triad.data.datasets import SyntheticAVDataset
+from triad.data.packed import PackedAVDataset, pack_dataset
+from triad.data.pipeline import AVLoader
 
 
 @pytest.fixture(scope="module")
@@ -45,7 +45,7 @@ def test_device_batch_carries_wire_dtypes(pack_path):
 
 
 def test_device_ingest_matches_host_augmentation(pack_path):
-    from triad_tpu.data.device_aug import device_ingest_av
+    from triad.data.device_aug import device_ingest_av
 
     host = next(iter(_loader(pack_path, False)))
     dev = device_ingest_av(next(iter(_loader(pack_path, True))))
@@ -59,7 +59,7 @@ def test_device_ingest_matches_host_augmentation(pack_path):
 
 
 def test_ingest_passthrough_for_augmented_batches(pack_path):
-    from triad_tpu.data.device_aug import device_ingest_av
+    from triad.data.device_aug import device_ingest_av
 
     host = next(iter(_loader(pack_path, False)))
     out = device_ingest_av(host)
@@ -76,8 +76,8 @@ def test_ingest_passthrough_for_augmented_batches(pack_path):
 def test_device_augment_tv_matches_host_apply():
     import jax.numpy as jnp
 
-    from triad_tpu.data.device_aug import device_augment_tv, tv_param_arrays
-    from triad_tpu.data.images import apply_tv_image, draw_tv_params
+    from triad.data.device_aug import device_augment_tv, tv_param_arrays
+    from triad.data.images import apply_tv_image, draw_tv_params
 
     rng = np.random.default_rng(7)
     b, h, w = 5, 28, 28
@@ -116,10 +116,10 @@ def caption_dir(tmp_path):
 
 
 def test_tv_loader_device_augment_matches_host(caption_dir):
-    from triad_tpu.data.datasets import LocalCaptionDataset
-    from triad_tpu.data.device_aug import device_ingest_tv
-    from triad_tpu.data.pipeline import TVLoader
-    from triad_tpu.data.tokenizer import WordPieceTokenizer
+    from triad.data.datasets import LocalCaptionDataset
+    from triad.data.device_aug import device_ingest_tv
+    from triad.data.pipeline import TVLoader
+    from triad.data.tokenizer import WordPieceTokenizer
 
     ds = LocalCaptionDataset(caption_dir, image_size=28)
     tok = WordPieceTokenizer.build_from_corpus(

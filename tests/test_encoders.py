@@ -1,7 +1,7 @@
 """Encoder parity tests vs HF torch models instantiated from config.
 
 No network needed: HF models are built with random init from config
-objects, their weights ported via triad_tpu.models.weights, and outputs
+objects, their weights ported via triad.models.weights, and outputs
 compared in fp32. This pins the numerics of every backbone (SURVEY §7.2
 step 2; BASELINE north star requires outputs matching the torch
 reference within tolerance).
@@ -13,11 +13,11 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from triad_tpu.core.config import DistilBertConfig, HubertConfig, ViTConfig
-from triad_tpu.models.distilbert import DistilBertModel
-from triad_tpu.models.hubert import HubertModel, normalize_waveform
-from triad_tpu.models.vit import DinoViT
-from triad_tpu.models.weights import port_distilbert, port_dinov2, port_hubert
+from triad.core.config import DistilBertConfig, HubertConfig, ViTConfig
+from triad.models.distilbert import DistilBertModel
+from triad.models.hubert import HubertModel, normalize_waveform
+from triad.models.vit import DinoViT
+from triad.models.weights import port_distilbert, port_dinov2, port_hubert
 
 torch.manual_seed(0)
 
@@ -224,7 +224,7 @@ class TestHubertParity:
 class TestFastVariants:
     @pytest.mark.slow
     def test_matmul_frontend_equals_conv(self):
-        """frontend_impl='matmul' (im2col + MXU matmul) and
+        """frontend_impl='matmul' (im2col + one matmul) and
         'block_matmul' (contiguous-slice block matmuls) are numerically
         equivalent to the XLA conv path, sharing the same param layout."""
         import dataclasses
@@ -243,7 +243,7 @@ class TestFastVariants:
             )
 
     def test_bf16_scores_attention_close_to_f32(self):
-        from triad_tpu.models.layers import dot_product_attention
+        from triad.models.layers import dot_product_attention
 
         rng = np.random.default_rng(8)
         q = jnp.asarray(rng.normal(size=(2, 10, 4, 8)).astype(np.float32))
@@ -265,40 +265,32 @@ class TestFastVariants:
 
 class TestFlashAttention:
     def test_flash_matches_xla_with_padding_and_mask(self):
-        """flash_dot_product_attention (interpret mode on CPU) ==
-        masked XLA softmax attention for non-128-multiple lengths."""
-        import numpy as np
-        import jax
-        import jax.numpy as jnp
-        from jax.experimental.pallas import tpu as pltpu
+        """attention(impl="flash") (the Pallas kernel, interpret mode on
+        CPU) == masked XLA softmax attention at a ragged length."""
+        from triad.models.layers import attention
 
-        from triad_tpu.models.layers import (
-            dot_product_attention,
-            flash_dot_product_attention,
-        )
-
-        B, N, H, D = 2, 37, 2, 64
+        B, N, H, D = 2, 37, 2, 16
         rng = np.random.default_rng(0)
-        q = jnp.asarray(rng.normal(size=(B, N, H, D)).astype(np.float32) * 0.3)
-        k = jnp.asarray(rng.normal(size=(B, N, H, D)).astype(np.float32) * 0.3)
-        v = jnp.asarray(rng.normal(size=(B, N, H, D)).astype(np.float32) * 0.3)
+        q, k, v = (
+            jnp.asarray(rng.normal(size=(B, N, H, D)).astype(np.float32) * 0.3)
+            for _ in range(3)
+        )
         key_mask = jnp.asarray(
             (np.arange(N)[None, :] < np.array([[30], [37]])).astype(bool)
         )[:, None, None, :]
 
-        ref = dot_product_attention(q, k, v, key_mask, jnp.float32)
-        with pltpu.force_tpu_interpret_mode():
-            out = flash_dot_product_attention(q, k, v, key_mask, jnp.float32)
+        ref = attention(q, k, v, key_mask, jnp.float32, impl="xla")
+        out = attention(q, k, v, key_mask, jnp.float32, impl="flash")
         np.testing.assert_allclose(
-            np.asarray(out), np.asarray(ref), rtol=2e-3, atol=2e-3
+            np.asarray(out), np.asarray(ref), rtol=2e-5, atol=2e-5
         )
 
 
 class TestLoRACompute:
     def test_folded_equals_separate(self):
-        """lora_compute='folded' (x @ (W + s·A@B), one MXU pass) matches
+        """lora_compute='folded' (x @ (W + s·A@B), one matmul) matches
         the peft-shaped 'separate' three-matmul form."""
-        from triad_tpu.models.layers import LoRADense
+        from triad.models.layers import LoRADense
 
         rng = np.random.default_rng(9)
         x = jnp.asarray(rng.normal(size=(3, 17, 32)).astype(np.float32))
@@ -333,112 +325,14 @@ class TestLoRACompute:
             )
 
 
-class TestVitFusedMlp:
-    def test_vit_fused_mlp_param_compat(self):
-        """ViT mlp_impl='fused' consumes the nn.Dense param tree and
-        matches the XLA path (interpret mode on CPU)."""
-        import dataclasses
-
-        from jax.experimental.pallas import tpu as pltpu
-
-        from triad_tpu.core.config import ViTConfig
-        from triad_tpu.models.vit import ViTBlock
-
-        cfg = ViTConfig(
-            hidden_size=32, num_layers=1, num_heads=2, patch_size=4,
-            image_size=16, lora_rank=0,
-        )
-        block = ViTBlock(cfg)
-        rng = np.random.default_rng(11)
-        x = jnp.asarray(rng.normal(size=(2, 9, 32)).astype(np.float32) * 0.3)
-        params = block.init(jax.random.key(0), x)["params"]
-        out_xla = block.apply({"params": params}, x)
-        fused = ViTBlock(dataclasses.replace(cfg, mlp_impl="fused"))
-        with pltpu.force_tpu_interpret_mode():
-            out_fused = fused.apply({"params": params}, x)
-        np.testing.assert_allclose(
-            np.asarray(out_fused), np.asarray(out_xla), rtol=2e-5, atol=2e-5
-        )
-
-
-class TestPallasFrontend:
-    @pytest.mark.slow
-    def test_pallas_frontend_equals_conv(self):
-        """frontend_impl='pallas' (fused stride-2 convs with VMEM
-        norm/GELU prologues, interpret mode on CPU) matches the XLA conv
-        path on the same params."""
-        import dataclasses
-
-        from jax.experimental.pallas import tpu as pltpu
-
-        cfg = HubertConfig(**SMALL_HUBERT)
-        conv_model = HubertModel(cfg)
-        rng = np.random.default_rng(12)
-        audio = jnp.asarray(rng.normal(size=(2, 2000)).astype(np.float32))
-        params = conv_model.init(jax.random.key(0), audio)["params"]
-        out_conv = conv_model.apply({"params": params}, audio)
-        for impl in ("pallas", "conv_act"):
-            alt = HubertModel(dataclasses.replace(cfg, frontend_impl=impl))
-            with pltpu.force_tpu_interpret_mode():
-                out_alt = alt.apply({"params": params}, audio)
-            np.testing.assert_allclose(
-                np.asarray(out_alt), np.asarray(out_conv), rtol=1e-4,
-                atol=1e-4, err_msg=impl,
-            )
-
-    @pytest.mark.slow
-    def test_pallas_frontend_gradients(self):
-        """The custom-VJP backward (XLA reference recompute) produces
-        the same parameter gradients as the conv path."""
-        import dataclasses
-
-        from jax.experimental.pallas import tpu as pltpu
-
-        # remat='none': interpret-mode pallas carries callback effects
-        # that jax.checkpoint cannot partial-eval (the chunked-remat
-        # wrapper is the training path; pallas is the eval fast path).
-        cfg = dataclasses.replace(
-            HubertConfig(**SMALL_HUBERT), remat="none"
-        )
-        conv_model = HubertModel(cfg)
-        rng = np.random.default_rng(13)
-        audio = jnp.asarray(rng.normal(size=(2, 2000)).astype(np.float32))
-        params = conv_model.init(jax.random.key(0), audio)["params"]
-        alts = [
-            HubertModel(dataclasses.replace(cfg, frontend_impl=impl))
-            for impl in ("pallas", "conv_act")
-        ]
-
-        def loss(model):
-            return lambda p: jnp.sum(
-                model.apply({"params": p}, audio) ** 2
-            )
-
-        g_conv = jax.grad(loss(conv_model))(params)
-        flat_c = jax.tree_util.tree_leaves_with_path(g_conv)
-        for alt in alts:
-            with pltpu.force_tpu_interpret_mode():
-                g_alt = jax.grad(loss(alt))(params)
-            flat_a = dict(
-                (jax.tree_util.keystr(k), v)
-                for k, v in jax.tree_util.tree_leaves_with_path(g_alt)
-            )
-            for k, v in flat_c:
-                ks = jax.tree_util.keystr(k)
-                np.testing.assert_allclose(
-                    np.asarray(flat_a[ks]), np.asarray(v), rtol=2e-3,
-                    atol=2e-4, err_msg=ks,
-                )
-
-
 class TestSpecAugment:
     """HF HuBERT applies SpecAugment time masking in train mode
     (modeling_hubert._mask_hidden_states; ACTIVE in the reference's
     training since model.train() keeps apply_spec_augment=True)."""
 
     def _model(self, **kw):
-        from triad_tpu.core.config import HubertConfig
-        from triad_tpu.models.hubert import HubertModel
+        from triad.core.config import HubertConfig
+        from triad.models.hubert import HubertModel
 
         cfg = HubertConfig(
             hidden_size=32, num_layers=1, num_heads=4, intermediate_size=64,
@@ -474,7 +368,7 @@ class TestSpecAugment:
         import jax
         import jax.numpy as jnp
 
-        from triad_tpu.models.hubert import _spec_augment_time_mask
+        from triad.models.hubert import _spec_augment_time_mask
 
         B, T, D = 16, 500, 8
         x = jnp.zeros((B, T, D), jnp.float32)
@@ -540,8 +434,8 @@ class TestPhaseFrontend:
         import jax
         import jax.numpy as jnp
 
-        from triad_tpu.core.config import HubertConfig
-        from triad_tpu.models.hubert import ConvFeatureEncoder
+        from triad.core.config import HubertConfig
+        from triad.models.hubert import ConvFeatureEncoder
 
         base = HubertConfig()
         wave = jnp.asarray(
@@ -568,8 +462,8 @@ class TestPhaseFrontend:
         import jax
         import jax.numpy as jnp
 
-        from triad_tpu.core.config import HubertConfig
-        from triad_tpu.models.hubert import ConvFeatureEncoder
+        from triad.core.config import HubertConfig
+        from triad.models.hubert import ConvFeatureEncoder
 
         base = HubertConfig()
         for t in (8000, 12345, 16331):
@@ -596,42 +490,3 @@ class TestPhaseFrontend:
             np.testing.assert_allclose(
                 got[:, :n], ref[:, :n], atol=1e-5
             )
-
-
-class TestPosConvImpl:
-    def test_pallas_matches_conv_module(self):
-        """posconv_impl="pallas" (fused packed-layout kernel) produces
-        the same PositionalConvEmbedding outputs as the XLA conv branch
-        from the SAME param tree (the _PosConvParams shim must mirror
-        nn.Conv's tree and initializers exactly)."""
-        import dataclasses
-
-        from jax.experimental.pallas import tpu as pltpu
-
-        from triad_tpu.models.hubert import PositionalConvEmbedding
-
-        cfg = HubertConfig(
-            hidden_size=64, num_conv_pos_embeddings=16,
-            num_conv_pos_embedding_groups=4,
-        )
-        rng = np.random.default_rng(11)
-        x = jnp.asarray(rng.normal(size=(2, 37, 64)).astype(np.float32))
-        ref_mod = PositionalConvEmbedding(cfg)
-        params = ref_mod.init(jax.random.key(0), x)["params"]
-        ref = np.asarray(ref_mod.apply({"params": params}, x))
-
-        pal_mod = PositionalConvEmbedding(
-            dataclasses.replace(cfg, posconv_impl="pallas")
-        )
-        with pltpu.force_tpu_interpret_mode():
-            # identical param trees: the pallas branch can consume the
-            # conv branch's params verbatim (and vice versa)
-            pal_params = pal_mod.init(jax.random.key(0), x)["params"]
-            assert jax.tree.structure(pal_params) == jax.tree.structure(
-                params
-            )
-            assert [
-                tuple(p.shape) for p in jax.tree.leaves(pal_params)
-            ] == [tuple(p.shape) for p in jax.tree.leaves(params)]
-            got = np.asarray(pal_mod.apply({"params": params}, x))
-        np.testing.assert_allclose(got, ref, atol=3e-4, rtol=1e-4)

@@ -23,15 +23,15 @@ def _small_cfg():
 
 @pytest.fixture(scope="module")
 def params():
-    from triad_tpu.models import init_triad_model
+    from triad.models import init_triad_model
 
     return init_triad_model(_small_cfg(), jax.random.key(0))
 
 
 class TestSpecs:
     def test_large_leaves_shard_small_replicate(self, params):
-        from triad_tpu.parallel.dp import make_mesh
-        from triad_tpu.parallel.fsdp import fsdp_param_specs
+        from triad.parallel.dp import make_mesh
+        from triad.parallel.fsdp import fsdp_param_specs
 
         mesh = make_mesh(8)
         specs = fsdp_param_specs(params, mesh)
@@ -46,8 +46,8 @@ class TestSpecs:
         assert specs["temperature"] == P()
 
     def test_extends_tp_base_specs(self, params):
-        from triad_tpu.parallel.fsdp import fsdp_param_specs
-        from triad_tpu.parallel.tp import make_dp_tp_mesh, tp_param_specs
+        from triad.parallel.fsdp import fsdp_param_specs
+        from triad.parallel.tp import make_dp_tp_mesh, tp_param_specs
 
         mesh = make_dp_tp_mesh(8, 2)  # data=4, model=2
         base = tp_param_specs(params, 2)
@@ -71,8 +71,8 @@ class TestStepEquivalence:
         }
 
     def _single_device(self, params, av):
-        from triad_tpu.core.config import LossConfig, OptimConfig
-        from triad_tpu.train import (
+        from triad.core.config import LossConfig, OptimConfig
+        from triad.train import (
             OptimizerBank,
             ParamPartition,
             StepFactory,
@@ -96,11 +96,11 @@ class TestStepEquivalence:
 
     @pytest.mark.parametrize("tp", [1, 2])
     def test_fsdp_step_matches_single_device(self, params, tp):
-        from triad_tpu.parallel.dp import make_mesh
-        from triad_tpu.parallel.fsdp import fsdp_param_specs
-        from triad_tpu.parallel.tp import make_dp_tp_mesh, tp_param_specs
-        from triad_tpu.parallel.zero import apply_zero1
-        from triad_tpu.train import StepFactory, init_train_state
+        from triad.parallel.dp import make_mesh
+        from triad.parallel.fsdp import fsdp_param_specs
+        from triad.parallel.tp import make_dp_tp_mesh, tp_param_specs
+        from triad.parallel.zero import apply_zero1
+        from triad.train import StepFactory, init_train_state
 
         av = self._batch()
         (ns0, m0), (model_cfg, loss_cfg, optim_cfg, partition, bank) = (
@@ -146,8 +146,8 @@ def test_trainer_fsdp_matches_dp(tmp_path):
     """Production Trainer with MeshConfig(num_devices=8, fsdp=True):
     final params match the plain-DP run."""
     from tests.test_trainer import tiny_config
-    from triad_tpu.core.config import MeshConfig
-    from triad_tpu.train.trainer import Trainer
+    from triad.core.config import MeshConfig
+    from triad.train.trainer import Trainer
 
     def run(mesh_cfg, out):
         cfg = tiny_config(out)
@@ -178,11 +178,11 @@ def test_trainer_fsdp_matches_dp(tmp_path):
 def test_fsdp_accumulation_step_matches_single_device(params):
     """Gradient accumulation (accum=2, grad_accum buffer sharded like
     the params) under FSDP: two micro steps == the single-device pair."""
-    from triad_tpu.core.config import LossConfig, OptimConfig
-    from triad_tpu.parallel.dp import make_mesh
-    from triad_tpu.parallel.fsdp import fsdp_param_specs
-    from triad_tpu.parallel.zero import apply_zero1
-    from triad_tpu.train import (
+    from triad.core.config import LossConfig, OptimConfig
+    from triad.parallel.dp import make_mesh
+    from triad.parallel.fsdp import fsdp_param_specs
+    from triad.parallel.zero import apply_zero1
+    from triad.train import (
         OptimizerBank,
         ParamPartition,
         StepFactory,
@@ -249,10 +249,10 @@ class TestMultisliceFSDP:
     8-device CPU mesh must reproduce the single-device step."""
 
     def test_step_matches_single_device(self, params):
-        from triad_tpu.parallel.dp import make_multislice_mesh
-        from triad_tpu.parallel.fsdp import fsdp_param_specs
-        from triad_tpu.parallel.zero import apply_zero1
-        from triad_tpu.train import StepFactory, init_train_state
+        from triad.parallel.dp import make_multislice_mesh
+        from triad.parallel.fsdp import fsdp_param_specs
+        from triad.parallel.zero import apply_zero1
+        from triad.train import StepFactory, init_train_state
 
         helper = TestStepEquivalence()
         av = helper._batch()
@@ -298,9 +298,9 @@ class TestMultisliceFSDP:
         import math
 
         from tests.test_trainer import tiny_config
-        from triad_tpu.core.config import MeshConfig
-        from triad_tpu.parallel.distributed import fetch
-        from triad_tpu.train.trainer import Trainer
+        from triad.core.config import MeshConfig
+        from triad.parallel.distributed import fetch
+        from triad.train.trainer import Trainer
 
         cfg = tiny_config(tmp_path)
         cfg = dc.replace(

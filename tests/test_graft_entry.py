@@ -1,11 +1,10 @@
 """Driver-style regression tests for ``__graft_entry__``.
 
-Round-2 postmortem (VERDICT.md weak #1): ``_dryrun_body`` lost its
-``return loss`` when the TP-comparison leg landed, and nothing in CI ran
-``dryrun_multichip`` the way the driver does — so the scorecard recorded
-``MULTICHIP_r02.json {ok:false}`` even though both legs printed matching
-losses. These tests execute the exact subprocess command the driver
-uses, so that class of regression can never ship silently again.
+``_dryrun_body`` once lost its ``return loss`` when the TP-comparison
+leg landed, and nothing ran ``dryrun_multichip`` the way a fresh
+interpreter does, so the dryrun failed even though both legs printed
+matching losses. These tests execute that exact subprocess command, so
+that class of regression cannot ship silently again.
 
 The dryrun self-bootstraps onto a virtual 8-device CPU mesh and uses the
 persistent compile cache (``__graft_entry__._dryrun_cache_dir``), so a

@@ -1,4 +1,4 @@
-"""HF-snapshot weight import (VERDICT r3 item 6): per-backbone HF
+"""HF-snapshot weight import: per-backbone HF
 snapshot directories (config.json + safetensors / sharded safetensors /
 pytorch_model.bin) and the torch.hub DINOv2 .pth file all load through
 models/hf_import.py into trees identical to the direct HF->Flax ports —
@@ -16,13 +16,13 @@ import torch
 
 from tests.test_encoders import SMALL_HUBERT, SMALL_TEXT, SMALL_VIT
 from tests.test_multimodal import small_model_config
-from triad_tpu.models.hf_import import (
+from triad.models.hf_import import (
     init_params_from_pretrained,
     load_dinov2_snapshot,
     load_distilbert_snapshot,
     load_hubert_snapshot,
 )
-from triad_tpu.models.weights import (
+from triad.models.weights import (
     port_distilbert,
     port_dinov2,
     port_hubert,
@@ -241,7 +241,7 @@ def test_init_params_from_pretrained_full_tree(hf_models, tmp_path):
     _assert_trees_equal(params["text_backbone"], port_distilbert(db))
     assert "temperature" in params and "audio_projection" in params
 
-    from triad_tpu.models import TriadModel
+    from triad.models import TriadModel
 
     model = TriadModel(cfg)
     rng = np.random.default_rng(1)
@@ -262,7 +262,7 @@ def test_forward_parity_through_snapshot(hf_models, tmp_path):
     forward."""
     import jax.numpy as jnp
 
-    from triad_tpu.models.hubert import HubertModel as FlaxHubert
+    from triad.models.hubert import HubertModel as FlaxHubert
 
     hub, _, _ = hf_models
     d = tmp_path / "hubert"

@@ -23,7 +23,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from triad_tpu.core.config import (
+from triad.core.config import (
     DistilBertConfig,
     HubertConfig,
     LossConfig,
@@ -31,13 +31,13 @@ from triad_tpu.core.config import (
     OptimConfig,
     ViTConfig,
 )
-from triad_tpu.data.datasets import (
+from triad.data.datasets import (
     GroundedSyntheticAVDataset,
     GroundedSyntheticSpec,
     GroundedSyntheticTVDataset,
 )
-from triad_tpu.models import TriadModel, init_triad_model
-from triad_tpu.train import (
+from triad.models import TriadModel, init_triad_model
+from triad.train import (
     OptimizerBank,
     ParamPartition,
     StepFactory,
@@ -213,11 +213,11 @@ def test_trainer_grounded_synthetic_wiring(tmp_path):
     """config.data.synthetic_grounded routes the Trainer (train AND
     val datasets) to the grounded datasets and a short run trains."""
     from tests.test_trainer import tiny_config
-    from triad_tpu.data.datasets import (
+    from triad.data.datasets import (
         GroundedSyntheticAVDataset as GAV,
         GroundedSyntheticTVDataset as GTV,
     )
-    from triad_tpu.train.trainer import Trainer
+    from triad.train.trainer import Trainer
 
     import dataclasses
 
@@ -257,15 +257,15 @@ def test_learns_from_real_compressed_media(tmp_path):
     import cv2
 
     from tests.test_trainer import tiny_config
-    from triad_tpu.data import native
-    from triad_tpu.data.datasets import (
+    from triad.data import native
+    from triad.data.datasets import (
         GroundedSyntheticAVDataset,
         GroundedSyntheticSpec,
         GroundedSyntheticTVDataset,
     )
-    from triad_tpu.data.images import IMAGENET_MEAN, IMAGENET_STD
-    from triad_tpu.data.mp4 import write_video_mp4
-    from triad_tpu.train.trainer import Trainer
+    from triad.data.images import IMAGENET_MEAN, IMAGENET_STD
+    from triad.data.mp4 import write_video_mp4
+    from triad.train.trainer import Trainer
 
     if not native.h264_supported():
         pytest.skip("libavcodec built without an H.264 encoder")

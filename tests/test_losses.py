@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from triad_tpu.core.config import LossConfig
-from triad_tpu.ops import (
+from triad.core.config import LossConfig
+from triad.ops import (
     aggregate_crossbatch,
     av_loss,
     pairwise_similarity,
@@ -210,12 +210,13 @@ class TestBf16VolumeOperands:
     """bf16 features: the loss matmuls run as bf16 x bf16 with fp32
     accumulation (DEFAULT precision) — numerically equal to casting to
     fp32 and running HIGHEST (bf16 products are exact in the fp32
-    accumulator), at ~1/4 the MXU cost. This test pins the equality."""
+    accumulator), at a fraction of the matmul cost. This test pins the
+    equality."""
 
     def test_chunked_bf16_equals_fp32_highest(self):
         import jax.numpy as jnp
 
-        from triad_tpu.ops.similarity import aggregate_crossbatch
+        from triad.ops.similarity import aggregate_crossbatch
 
         rng = np.random.default_rng(0)
         q16 = jnp.asarray(
@@ -245,7 +246,7 @@ class TestBf16VolumeOperands:
     def test_dense_bf16_equals_fp32_highest(self):
         import jax.numpy as jnp
 
-        from triad_tpu.ops.similarity import aggregate_crossbatch
+        from triad.ops.similarity import aggregate_crossbatch
 
         rng = np.random.default_rng(1)
         q16 = jnp.asarray(
@@ -278,7 +279,7 @@ class TestBf16VolumeOperands:
 
 class TestBf16Volume:
     """volume_dtype="bfloat16": the token-sim volume is rounded to bf16
-    between the matmul (still f32-accumulated on the MXU) and its
+    between the matmul (still f32-accumulated) and its
     max/clamp consumers — halves the loss path's dominant HBM traffic
     (the eval bench's perf knob). Values must stay within bf16 rounding
     of the f32-volume path, and the chunked_vjp backward must recompute
@@ -298,7 +299,7 @@ class TestBf16Volume:
         "impl", ["dense", "chunked", "chunked_unrolled", "chunked_vjp"]
     )
     def test_bf16_volume_within_bf16_rounding(self, impl):
-        from triad_tpu.ops.similarity import aggregate_crossbatch
+        from triad.ops.similarity import aggregate_crossbatch
 
         q, k, t = self._qkt()
         f32 = aggregate_crossbatch(
@@ -320,7 +321,7 @@ class TestBf16Volume:
         )
 
     def test_vjp_bf16_forward_matches_chunked_bf16(self):
-        from triad_tpu.ops.similarity import aggregate_crossbatch
+        from triad.ops.similarity import aggregate_crossbatch
 
         q, k, t = self._qkt(seed=3)
         a = aggregate_crossbatch(
@@ -334,7 +335,7 @@ class TestBf16Volume:
         # Not bit-exact by contract: the chunked forward reduces as
         # mean(max_sims) while the VJP forward computes sum(max_sims *
         # (1/Nq)) — algebraically equal, last-bit different in general
-        # (ADVICE r4). Tight allclose pins the equivalence.
+        # Tight allclose pins the equivalence.
         np.testing.assert_allclose(
             np.asarray(a.clip_sims), np.asarray(b.clip_sims),
             rtol=1e-6, atol=1e-7,
@@ -349,7 +350,7 @@ class TestBf16Volume:
         cotangents under jax.checkpoint, NaN without) — the chunked
         path force-unrolls at bf16 volume for exactly this reason
         (similarity.aggregate_crossbatch)."""
-        from triad_tpu.ops.similarity import aggregate_crossbatch
+        from triad.ops.similarity import aggregate_crossbatch
 
         q, k, t = self._qkt(seed=7)
 
@@ -392,8 +393,8 @@ class TestChunkedCustomVJP:
     @pytest.mark.parametrize("chunk", [2, 3])
     def test_av_unrolled_matches_chunked(self, feats, chunk):
         """implementation="chunked_unrolled" = the chunked math with the
-        scan Python-unrolled (XLA schedules chunks freely; measured +10
-        clips/s at eval). Values and grads must match exactly."""
+        scan Python-unrolled (XLA schedules chunks freely). Values and
+        grads must match exactly."""
         audio, _, visual, _ = feats
         a, v = jnp.asarray(audio), jnp.asarray(visual)
         t = jnp.float32(TEMP)

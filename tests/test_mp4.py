@@ -1,4 +1,4 @@
-"""MP4 demux/mux tests (native/mp4.cc + triad_tpu/data/mp4.py).
+"""MP4 demux/mux tests (native/mp4.cc + triad/data/mp4.py).
 
 Cross-validation strategy: cv2's VideoWriter (libavformat's MP4 muxer)
 authors real files our demuxer must parse; our own muxer's output must
@@ -8,7 +8,7 @@ round-trip through BOTH our demuxer and cv2's decoder.
 import numpy as np
 import pytest
 
-from triad_tpu.data import native
+from triad.data import native
 
 cv2 = pytest.importorskip("cv2")
 
@@ -35,7 +35,7 @@ def cv2_mp4(tmp_path_factory):
 
 class TestDemux:
     def test_track_metadata(self, cv2_mp4):
-        from triad_tpu.data.mp4 import Mp4File
+        from triad.data.mp4 import Mp4File
 
         with Mp4File.from_path(cv2_mp4) as f:
             tracks = f.tracks
@@ -48,7 +48,7 @@ class TestDemux:
             assert abs(t.duration_seconds - 1.2) < 0.05
 
     def test_sample_ranges_within_file(self, cv2_mp4):
-        from triad_tpu.data.mp4 import Mp4File
+        from triad.data.mp4 import Mp4File
 
         import os
 
@@ -61,14 +61,14 @@ class TestDemux:
                 prev_end = off + n
 
     def test_decoder_config_present(self, cv2_mp4):
-        from triad_tpu.data.mp4 import Mp4File
+        from triad.data.mp4 import Mp4File
 
         with Mp4File.from_path(cv2_mp4) as f:
             # mp4v carries an esds decoder config
             assert len(f.decoder_config(0)) > 0
 
     def test_malformed_raises(self):
-        from triad_tpu.data.mp4 import Mp4File
+        from triad.data.mp4 import Mp4File
 
         with pytest.raises(ValueError):
             Mp4File(b"\x00\x00\x00\x08free not an mp4")
@@ -76,7 +76,7 @@ class TestDemux:
 
 class TestMux:
     def test_remux_roundtrip(self, cv2_mp4, tmp_path):
-        from triad_tpu.data.mp4 import Mp4File, extract_audio_pcm, mux_mp4
+        from triad.data.mp4 import Mp4File, extract_audio_pcm, mux_mp4
 
         sr = 16_000
         audio = (
@@ -118,8 +118,8 @@ class TestMux:
     def test_extract_audio_uses_native_mp4(self, cv2_mp4, tmp_path, capsys):
         """data/audio.extract_audio decodes PCM mp4 audio natively
         (no ffmpeg in this environment)."""
-        from triad_tpu.data.audio import extract_audio
-        from triad_tpu.data.mp4 import mux_mp4
+        from triad.data.audio import extract_audio
+        from triad.data.mp4 import mux_mp4
 
         sr = 22_050
         audio = (
@@ -137,8 +137,8 @@ class TestMux:
         """AudioVisualizer.make_attention_video embeds a PCM audio track
         without ffmpeg (the reference needs the ffmpeg binary for this,
         viz.py:128-137)."""
-        from triad_tpu.data.mp4 import Mp4File
-        from triad_tpu.viz.heatmaps import AudioVisualizer
+        from triad.data.mp4 import Mp4File
+        from triad.viz.heatmaps import AudioVisualizer
 
         viz = AudioVisualizer(image_size=224)
         n_tokens = 4
@@ -166,7 +166,7 @@ def _lpcm_v2_entry(sample_rate, channels, bits, flags):
     bytes/packet@48, frames/packet@52."""
     import struct
 
-    from triad_tpu.data.mp4 import _box
+    from triad.data.mp4 import _box
 
     body = (
         b"\x00" * 6 + struct.pack(">H", 1)  # reserved + data_ref_idx
@@ -188,7 +188,7 @@ def _lpcm_v2_entry(sample_rate, channels, bits, flags):
 def _audio_only_mp4(stsd_entry, pcm_bytes, sample_rate, n_frames):
     import struct
 
-    from triad_tpu.data.mp4 import _box, _full_box, _stbl_boxes, _trak
+    from triad.data.mp4 import _box, _full_box, _stbl_boxes, _trak
 
     ftyp = _box(b"ftyp", b"isom" + struct.pack(">I", 512) + b"isomiso2mp41")
     mdat = _box(b"mdat", pcm_bytes)
@@ -211,7 +211,7 @@ class TestPcmVariants:
     def test_lpcm_v2_sound_description(self):
         """v2 ('lpcm') field offsets: rate@24, channels@32, bits@40,
         flags@44 (ADVICE round 1: these were read 4 bytes early)."""
-        from triad_tpu.data.mp4 import Mp4File
+        from triad.data.mp4 import Mp4File
 
         sr, ch = 48_000, 2
         n = 480
@@ -239,7 +239,7 @@ class TestPcmVariants:
         np.testing.assert_allclose(got1, right, atol=1.0 / 32000)
 
     def test_lpcm_v2_float32_bigendian(self):
-        from triad_tpu.data.mp4 import Mp4File
+        from triad.data.mp4 import Mp4File
 
         sr, n = 16_000, 320
         x = np.linspace(-1, 1, n).astype(">f4")
@@ -258,7 +258,7 @@ class TestPcmVariants:
         """'in16' = big-endian 16-bit integer PCM (v0 entry)."""
         import struct
 
-        from triad_tpu.data.mp4 import Mp4File, _box
+        from triad.data.mp4 import Mp4File, _box
 
         sr, n = 8_000, 160
         x = (0.4 * np.sin(2 * np.pi * 100 * np.arange(n) / sr)).astype(
@@ -282,7 +282,7 @@ class TestPcmVariants:
     def test_closed_handle_raises(self, cv2_mp4):
         """Methods after close() raise instead of passing NULL to the
         native API (segfault)."""
-        from triad_tpu.data.mp4 import Mp4File
+        from triad.data.mp4 import Mp4File
 
         f = Mp4File.from_path(cv2_mp4)
         f.close()
@@ -304,7 +304,7 @@ class TestAvDecode:
     def test_aac_mux_demux_decode_roundtrip(self, cv2_mp4, tmp_path):
         """mp4a (AAC-LC) audio track: our muxer writes it (esds chain
         from the native encoder), our demuxer+libavcodec decode it."""
-        from triad_tpu.data.mp4 import Mp4File, extract_audio_track, mux_mp4
+        from triad.data.mp4 import Mp4File, extract_audio_track, mux_mp4
 
         sr = 16_000
         audio = (
@@ -330,7 +330,7 @@ class TestAvDecode:
         priming-delay shift): a 1024-frame lag is 64 ms of A/V skew,
         which dense grounding training would silently absorb. Noise is
         used because a sine correlates at every period."""
-        from triad_tpu.data.mp4 import Mp4File, extract_audio_track, mux_mp4
+        from triad.data.mp4 import Mp4File, extract_audio_track, mux_mp4
 
         sr = 16_000
         rng = np.random.default_rng(7)
@@ -353,8 +353,8 @@ class TestAvDecode:
     def test_extract_audio_handles_aac(self, cv2_mp4, tmp_path):
         """data/audio.extract_audio decodes AAC natively (no ffmpeg
         binary in this image)."""
-        from triad_tpu.data.audio import extract_audio
-        from triad_tpu.data.mp4 import mux_mp4
+        from triad.data.audio import extract_audio
+        from triad.data.mp4 import mux_mp4
 
         sr = 44_100
         audio = (
@@ -370,7 +370,7 @@ class TestAvDecode:
     def test_native_video_frame_matches_cv2(self, cv2_mp4):
         """Native demux + libavcodec frame decode vs cv2 on the same
         mp4v file (identical codec, same frame index)."""
-        from triad_tpu.data.mp4 import Mp4File
+        from triad.data.mp4 import Mp4File
 
         with Mp4File.from_path(cv2_mp4) as f:
             ti = f.find_track("vide")
@@ -386,7 +386,7 @@ class TestAvDecode:
         assert float(diff.mean()) < 4.0, f"mean abs diff {diff.mean()}"
 
     def test_load_video_frame_uses_native(self, cv2_mp4):
-        from triad_tpu.data.video import load_video_frame
+        from triad.data.video import load_video_frame
 
         rng = np.random.default_rng(0)
         frame = load_video_frame(cv2_mp4, rng=rng, size=32,
@@ -399,8 +399,8 @@ class TestAvDecode:
         same avc1 decode path real AudioSet media exercises: avcC
         config, stss keyframe seek, H.264 decode at non-keyframe
         indices."""
-        from triad_tpu.data import native
-        from triad_tpu.data.mp4 import Mp4File, write_video_mp4
+        from triad.data import native
+        from triad.data.mp4 import Mp4File, write_video_mp4
 
         if not native.h264_supported():
             pytest.skip("libavcodec built without an H.264 encoder")
@@ -433,8 +433,8 @@ class TestAvDecode:
     def test_h264_file_readable_by_cv2(self, tmp_path):
         """Interop: cv2 (an independent demuxer+decoder) must accept
         the natively-authored avc1 file."""
-        from triad_tpu.data import native
-        from triad_tpu.data.mp4 import write_video_mp4
+        from triad.data import native
+        from triad.data.mp4 import write_video_mp4
 
         if not native.h264_supported():
             pytest.skip("libavcodec built without an H.264 encoder")
@@ -455,8 +455,8 @@ class TestAvDecode:
     def test_attention_video_aac_audio(self, tmp_path):
         """Attention videos now embed AAC audio (the reference's codec,
         viz.py:134) instead of PCM when libavcodec is linked."""
-        from triad_tpu.data.mp4 import Mp4File
-        from triad_tpu.viz.heatmaps import AudioVisualizer
+        from triad.data.mp4 import Mp4File
+        from triad.viz.heatmaps import AudioVisualizer
 
         viz = AudioVisualizer(image_size=224)
         frame = np.zeros((224, 224, 3), np.float32)
@@ -482,7 +482,7 @@ def test_trak_edit_list_box():
     and whose media_time is the AAC priming delay."""
     import struct as _struct
 
-    from triad_tpu.data.mp4 import _trak
+    from triad.data.mp4 import _trak
 
     trak = _trak(
         2, 1000, 16000, 17408, b"soun", b"", media_time=1024,
@@ -505,6 +505,6 @@ def test_trak_edit_list_box():
 
 
 def test_trak_without_edit_list_unchanged():
-    from triad_tpu.data.mp4 import _trak
+    from triad.data.mp4 import _trak
 
     assert b"edts" not in _trak(1, 1000, 16000, 16000, b"soun", b"")

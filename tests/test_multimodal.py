@@ -6,15 +6,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from triad_tpu.core.config import (
+from triad.core.config import (
     DistilBertConfig,
     HubertConfig,
     LossConfig,
     ModelConfig,
     ViTConfig,
 )
-from triad_tpu.models import TriadModel, init_triad_model
-from triad_tpu.ops import av_loss, tv_loss
+from triad.models import TriadModel, init_triad_model
+from triad.ops import av_loss, tv_loss
 
 
 def small_model_config(**kw):

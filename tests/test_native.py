@@ -4,7 +4,7 @@ numpy/scipy reference implementations."""
 import numpy as np
 import pytest
 
-from triad_tpu.data import native
+from triad.data import native
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -27,7 +27,7 @@ class TestResample:
         assert 0.8 < np.abs(out[100:-100]).max() < 1.2
 
     def test_matches_scipy_closely(self):
-        from triad_tpu.data.audio import resample as scipy_resample
+        from triad.data.audio import resample as scipy_resample
 
         rng = np.random.default_rng(0)
         sr, target = 48_000, 16_000
@@ -69,7 +69,7 @@ class TestNormalizePad:
 
 class TestResizeNormalize:
     def test_matches_numpy_path(self):
-        from triad_tpu.data.images import imagenet_normalize, resize_bilinear
+        from triad.data.images import imagenet_normalize, resize_bilinear
 
         rng = np.random.default_rng(3)
         img = rng.integers(0, 256, size=(100, 160, 3), dtype=np.uint8)
@@ -112,7 +112,7 @@ class TestWavDecode:
     def test_native_matches_stdlib(self):
         import numpy as np
 
-        from triad_tpu.data import native
+        from triad.data import native
 
         data, sig = self._make_wav()
         out_py, sr_py = native._decode_wav_py(data, 0)
@@ -125,7 +125,7 @@ class TestWavDecode:
     def test_channel_selection_and_pcm32(self):
         import numpy as np
 
-        from triad_tpu.data import native
+        from triad.data import native
 
         data, sig = self._make_wav(width=4)
         if native.available():
@@ -137,7 +137,7 @@ class TestWavDecode:
     def test_load_wav_resamples(self, tmp_path):
         import numpy as np
 
-        from triad_tpu.data.native import load_wav
+        from triad.data.native import load_wav
 
         data, _ = self._make_wav(sr=22050, n=22050)
         p = tmp_path / "a.wav"
@@ -149,7 +149,7 @@ class TestWavDecode:
     def test_invalid_wav_raises(self):
         import pytest
 
-        from triad_tpu.data import native
+        from triad.data import native
 
         if not native.available():
             pytest.skip("native lib unavailable")

@@ -17,7 +17,7 @@ import sys
 import numpy as np
 import pytest
 
-from triad_tpu.data import native
+from triad.data import native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built"
@@ -30,7 +30,7 @@ import tempfile
 import numpy as np
 
 sys.path.insert(0, ".")
-from triad_tpu.data.mp4 import Mp4File, write_video_mp4
+from triad.data.mp4 import Mp4File, write_video_mp4
 
 # a small REAL file to mutate (sowt PCM audio — encoder-free authoring)
 rng = np.random.default_rng(0)

@@ -7,8 +7,8 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from triad_tpu.core.config import OptimConfig
-from triad_tpu.train.optim import (
+from triad.core.config import OptimConfig
+from triad.train.optim import (
     FROZEN_GROUP,
     OptimizerBank,
     ParamPartition,

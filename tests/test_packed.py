@@ -4,8 +4,8 @@ item 5's packed-format escape hatch for chip-rate ingest)."""
 import numpy as np
 import pytest
 
-from triad_tpu.data.datasets import SyntheticAVDataset
-from triad_tpu.data.packed import PackedAVDataset, pack_dataset
+from triad.data.datasets import SyntheticAVDataset
+from triad.data.packed import PackedAVDataset, pack_dataset
 
 
 @pytest.fixture(scope="module")
@@ -78,7 +78,7 @@ class TestRoundTrip:
         )
 
     def test_av_loader_integration(self, shard):
-        from triad_tpu.data.pipeline import AVLoader
+        from triad.data.pipeline import AVLoader
 
         path, _ = shard
         packed = PackedAVDataset(path)
@@ -92,7 +92,7 @@ class TestRoundTrip:
         assert batches[0]["audio"].shape == (3, 1600)
 
     def test_trainer_root_detection(self, shard):
-        from triad_tpu.train.trainer import _open_av_root
+        from triad.train.trainer import _open_av_root
 
         path, _ = shard
         ds = _open_av_root(path, 28, segmented=False)
@@ -105,7 +105,7 @@ class TestBatchedAugmentation:
     def test_apply_av_batch_matches_per_item(self):
         """Batched augmentation == per-item augment_av_frame with the
         same draws (tolerance: reduction-order ulps in the means)."""
-        from triad_tpu.data.images import (
+        from triad.data.images import (
             apply_av_batch,
             augment_av_frame,
             draw_av_params,
@@ -124,7 +124,7 @@ class TestBatchedAugmentation:
             np.testing.assert_allclose(batched[i], single, atol=2e-5)
 
     def test_loader_fast_path_deterministic(self, shard):
-        from triad_tpu.data.pipeline import AVLoader
+        from triad.data.pipeline import AVLoader
 
         path, _ = shard
         packed = PackedAVDataset(path)

@@ -8,9 +8,9 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from triad_tpu.core.config import LossConfig
-from triad_tpu.ops import av_loss, tv_loss
-from triad_tpu.parallel import distributed_av_loss, distributed_tv_loss, make_mesh
+from triad.core.config import LossConfig
+from triad.ops import av_loss, tv_loss
+from triad.parallel import distributed_av_loss, distributed_tv_loss, make_mesh
 
 pytestmark = pytest.mark.skipif(
     jax.device_count() < 8, reason="needs 8 virtual devices"
@@ -112,9 +112,9 @@ class TestZero1:
         moment leaves actually partitioned over the data axis."""
         import dataclasses
 
-        from triad_tpu.core.config import OptimConfig
-        from triad_tpu.parallel.zero import apply_zero1, zero1_state_shardings
-        from triad_tpu.train import (
+        from triad.core.config import OptimConfig
+        from triad.parallel.zero import apply_zero1, zero1_state_shardings
+        from triad.train import (
             OptimizerBank,
             ParamPartition,
             StepFactory,
@@ -127,7 +127,7 @@ class TestZero1:
             gradient_accumulation_steps=1,
             unfreeze_audio_step=0, unfreeze_text_step=0, unfreeze_vit_step=0,
         )
-        from triad_tpu.models import init_triad_model
+        from triad.models import init_triad_model
 
         params = init_triad_model(cfg, jax.random.key(0))
         part = ParamPartition(params)
@@ -203,7 +203,7 @@ class TestMultiSlice:
         axis equals the single-device loss on the concatenated batch."""
         import numpy as np
 
-        from triad_tpu.parallel.dp import (
+        from triad.parallel.dp import (
             distributed_av_loss,
             make_multislice_mesh,
         )
@@ -241,7 +241,7 @@ class TestMultiSlice:
         gradients equal the single-device dense path."""
         import numpy as np
 
-        from triad_tpu.parallel.dp import (
+        from triad.parallel.dp import (
             distributed_av_loss,
             make_multislice_mesh,
         )
@@ -390,10 +390,9 @@ class TestRingNegatives:
         self, mesh, feats, negatives
     ):
         """volume_dtype=bfloat16 through the DISTRIBUTED losses — the
-        combination the codified perf config ships (ADVICE r4: nothing
-        pinned it; notably the ring path nests the bf16-volume einsum
-        inside the ring lax.scan body, the construct the chunked path's
-        unroll guard exists for). Values and gradients must match the
+        combination the codified perf config ships (notably the ring
+        path nests the bf16-volume einsum inside the ring lax.scan body).
+        Values and gradients must match the
         single-device dense bf16-volume oracle."""
         cfg = LossConfig(
             implementation="chunked", chunk_size=4, negatives=negatives,
@@ -431,7 +430,7 @@ class TestRingNegatives:
             )
 
     def test_ring_rejects_tuple_axis(self, feats):
-        from triad_tpu.parallel.dp import make_multislice_mesh
+        from triad.parallel.dp import make_multislice_mesh
 
         mesh2 = make_multislice_mesh(2, 4)
         cfg = LossConfig(implementation="chunked", negatives="ring")
@@ -466,7 +465,7 @@ def test_multiprocess_dp_matches_single_process():
     proc = subprocess.run(
         [sys.executable, os.path.join(repo, "scripts", "multiproc_smoke.py")],
         # Generous: each gloo cold-cache retry re-runs a phase, and a
-        # loaded 1-core box (concurrent TPU compiles) measured the smoke
+        # loaded 1-core machine (concurrent compiles) measured the smoke
         # exceeding 25 min while PASSING every phase it finished
         # (checksums matching) — the old 1500 s timeout failed the test
         # on wall clock, not correctness.

@@ -70,7 +70,7 @@ class TestEndToEndParity:
 
 @pytest.mark.slow
 def test_via_file_checkpoint_round_trip():
-    """VERDICT round 2, missing #1 mitigation: the weights must survive a
+    """The weights must survive a
     full torch.save -> disk -> load_reference_checkpoint round trip (the
     reference's checkpoint_epoch{E}_step{S}.pt payload layout incl. the
     torch.compile ``_orig_mod.`` prefix), leaving only the download

@@ -7,9 +7,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from triad_tpu.models import TriadModel, init_triad_model
-from triad_tpu.models.quantize import int8_interception
-from triad_tpu.ops.quant import int8_dense
+from triad.models import TriadModel, init_triad_model
+from triad.models.quantize import int8_interception
+from triad.ops.quant import int8_dense
 from tests.test_multimodal import small_model_config
 
 

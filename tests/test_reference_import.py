@@ -12,9 +12,9 @@ import jax.numpy as jnp
 
 from tests.test_encoders import SMALL_HUBERT, SMALL_TEXT, SMALL_VIT
 from tests.test_multimodal import small_model_config
-from triad_tpu.models import TriadModel
-from triad_tpu.models.reference_import import port_reference_state_dict
-from triad_tpu.models.weights import port_dinov2
+from triad.models import TriadModel
+from triad.models.reference_import import port_reference_state_dict
+from triad.models.weights import port_dinov2
 
 
 def _hub_style_dinov2_state(hf_vit, lora_rank=8):
@@ -199,8 +199,8 @@ def test_audio_text_subtrees_match_hf_forward(reference_checkpoint):
     the checkpoint was built from."""
     state, _ = reference_checkpoint
     import dataclasses
-    from triad_tpu.models.hubert import HubertModel as FlaxHubert
-    from triad_tpu.core.config import HubertConfig
+    from triad.models.hubert import HubertModel as FlaxHubert
+    from triad.core.config import HubertConfig
 
     cfg = small_model_config()
     cfg = dataclasses.replace(

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from triad_tpu.eval import (
+from triad.eval import (
     compute_recall_at_k,
     score_matrix,
     select_subset_indices,
@@ -72,7 +72,7 @@ class TestATRetrieval:
         """A<->T recall: same masked aggregator, both sides ragged
         (the reference never measures this direction — README.md:15
         claims it, model.py:631-636 exposes it qualitatively)."""
-        from triad_tpu.eval import at_retrieval_metrics
+        from triad.eval import at_retrieval_metrics
 
         q, q_mask, k, k_mask, q_lens, k_lens = ragged_features
         m = at_retrieval_metrics(q, q_mask, k, k_mask, TEMP)

@@ -1,4 +1,4 @@
-"""Serving export + HTTP server (triad_tpu/serve): the exported
+"""Serving export + HTTP server (triad/serve): the exported
 StableHLO bundle must reproduce the live model bit-close on any batch
 size (symbolic batch dim), and the stdlib HTTP server must round-trip
 the endpoint contract."""
@@ -16,9 +16,9 @@ from tests.test_multimodal import small_model_config
 
 @pytest.fixture(scope="module")
 def bundle(tmp_path_factory):
-    from triad_tpu.data.tokenizer import WordPieceTokenizer
-    from triad_tpu.models import init_triad_model
-    from triad_tpu.serve.export import ServingBundle, export_bundle
+    from triad.data.tokenizer import WordPieceTokenizer
+    from triad.models import init_triad_model
+    from triad.serve.export import ServingBundle, export_bundle
 
     cfg = small_model_config()
     params = init_triad_model(cfg, jax.random.key(0))
@@ -37,7 +37,7 @@ def bundle(tmp_path_factory):
 class TestBundle:
     @pytest.mark.parametrize("B", [1, 3])
     def test_embeddings_match_live_model(self, bundle, B):
-        from triad_tpu.models import TriadModel
+        from triad.models import TriadModel
 
         b, cfg, params = bundle
         model = TriadModel(cfg)
@@ -52,11 +52,13 @@ class TestBundle:
             (b.embed_visual(images), TriadModel.encode_visual, (images,)),
             (b.embed_text_ids(ids, mask), TriadModel.encode_text, (ids, mask)),
         ):
-            ref = np.asarray(
-                model.apply(
-                    {"params": params}, *args, train=False, method=method
+            # jitted like the bundle: eager op-by-op execution rounds
+            # differently from any compiled program.
+            ref = np.asarray(jax.jit(
+                lambda p, *a: model.apply(
+                    {"params": p}, *a, train=False, method=method
                 )
-            )
+            )(params, *args))
             np.testing.assert_allclose(got, ref, rtol=2e-5, atol=1e-6)
 
     def test_pair_scores_match_numpy_oracle(self, bundle):
@@ -85,10 +87,28 @@ class TestBundle:
         assert out["mask"][0].sum() > 0
 
 
+def test_bundle_runs_cpu_and_carries_cuda_lowering(tmp_path):
+    """Bundles lower for cpu AND cuda by default: this CPU host runs the
+    cpu lowering, and the cuda one travels for the GPU servers."""
+    from triad.models import init_triad_model
+    from triad.serve.export import ServingBundle, export_bundle
+
+    cfg = small_model_config()
+    params = init_triad_model(cfg, jax.random.key(0))
+    out = export_bundle(params, cfg, str(tmp_path / "b"),
+                        audio_num_samples=1600, max_text_tokens=12)
+    b = ServingBundle(str(out))
+    assert b.meta["platforms"] == ["cpu", "cuda"]
+    for exp in b.exported.values():
+        assert tuple(exp.platforms) == ("cpu", "cuda")
+    tokens = b.embed_audio(np.zeros((2, 1600), np.float32))
+    assert tokens.shape[0] == 2 and np.isfinite(tokens).all()
+
+
 class TestServer:
     @pytest.fixture(scope="class")
     def url(self, bundle, tmp_path_factory):
-        from triad_tpu.serve.server import make_server
+        from triad.serve.server import make_server
 
         b, _, _ = bundle
         srv = make_server(str(b.path), port=0)
@@ -109,7 +129,7 @@ class TestServer:
         with urllib.request.urlopen(url + "/healthz") as r:
             meta = json.loads(r.read())
         assert meta["status"] == "ok"
-        assert meta["format"].startswith("triad_tpu.serve/")
+        assert meta["format"].startswith("triad.serve/")
 
     def test_embed_and_score_roundtrip(self, bundle, url):
         b, _, _ = bundle
@@ -158,8 +178,8 @@ class TestServer:
 
 @pytest.mark.slow
 def test_export_cli_random_init(tmp_path):
-    from triad_tpu.cli.export import main
-    from triad_tpu.serve.export import ServingBundle
+    from triad.cli.export import main
+    from triad.serve.export import ServingBundle
 
     # tiny config on disk so the CLI path exercises config loading
     cfg_file = tmp_path / "cfg.json"
@@ -179,8 +199,8 @@ def test_export_cli_random_init(tmp_path):
 def test_int8_bundle_exports_and_ranks_match(tmp_path):
     """--int8 export: Dense matmuls quantized inside the bundle; token
     features stay close enough that self-retrieval ranks match fp."""
-    from triad_tpu.models import init_triad_model
-    from triad_tpu.serve.export import ServingBundle, export_bundle
+    from triad.models import init_triad_model
+    from triad.serve.export import ServingBundle, export_bundle
 
     cfg = small_model_config()
     params = init_triad_model(cfg, jax.random.key(0))

@@ -28,14 +28,14 @@ def _small_cfg():
 
 @pytest.fixture(scope="module")
 def params():
-    from triad_tpu.models import init_triad_model
+    from triad.models import init_triad_model
 
     return init_triad_model(_small_cfg(), jax.random.key(0))
 
 
 class TestSpecs:
     def test_megatron_rules(self, params):
-        from triad_tpu.parallel.tp import tp_param_specs
+        from triad.parallel.tp import tp_param_specs
 
         specs = tp_param_specs(params, 2)
         au = specs["audio_backbone"]["layer_0"]
@@ -64,7 +64,7 @@ class TestSpecs:
         assert specs["temperature"] == P()
 
     def test_indivisible_dims_replicate(self, params):
-        from triad_tpu.parallel.tp import tp_param_specs
+        from triad.parallel.tp import tp_param_specs
 
         specs = tp_param_specs(params, 7)  # nothing divides by 7
         leaves = jax.tree.leaves(
@@ -73,17 +73,14 @@ class TestSpecs:
         assert all(s == P() for s in leaves)
 
     def test_resolve_xla_impls(self):
-        from triad_tpu.parallel.tp import resolve_xla_impls
+        from triad.parallel.tp import resolve_xla_impls
 
         cfg = _small_cfg()
-        resolved = resolve_xla_impls(cfg)
-        assert resolved.hubert.mlp_impl == "xla"
-        assert resolved.hubert.attention_impl == "xla"
-        assert resolved.hubert.ln_impl == "xla"
+        assert resolve_xla_impls(cfg) is cfg
         bad = dataclasses.replace(
-            cfg, hubert=dataclasses.replace(cfg.hubert, mlp_impl="fused")
+            cfg, hubert=dataclasses.replace(cfg.hubert, attention_impl="flash")
         )
-        with pytest.raises(ValueError, match="hubert.mlp_impl"):
+        with pytest.raises(ValueError, match="hubert.attention_impl"):
             resolve_xla_impls(bad)
 
 
@@ -91,14 +88,14 @@ class TestStepEquivalence:
     """dp4 x tp2 joint train step == single-device, params bit-close."""
 
     def test_joint_step_matches_single_device(self, params):
-        from triad_tpu.core.config import LossConfig, OptimConfig
-        from triad_tpu.parallel.distributed import put_global_tree
-        from triad_tpu.parallel.tp import (
+        from triad.core.config import LossConfig, OptimConfig
+        from triad.parallel.distributed import put_global_tree
+        from triad.parallel.tp import (
             make_dp_tp_mesh,
             tp_param_specs,
             tp_state_shardings,
         )
-        from triad_tpu.train import (
+        from triad.train import (
             OptimizerBank,
             ParamPartition,
             StepFactory,
@@ -179,8 +176,8 @@ def test_trainer_tp_matches_dp(tmp_path):
     """Production Trainer with MeshConfig(num_devices=8, tp=2): final
     params match the tp=1 (pure DP) run."""
     from tests.test_trainer import tiny_config
-    from triad_tpu.core.config import MeshConfig
-    from triad_tpu.train.trainer import Trainer
+    from triad.core.config import MeshConfig
+    from triad.train.trainer import Trainer
 
     def run(tp: int, out):
         cfg = tiny_config(out)
@@ -212,10 +209,10 @@ class TestZero1TpComposition:
     the step's numbers must not move."""
 
     def test_moment_shardings_combine_axes(self, params):
-        from triad_tpu.core.config import OptimConfig
-        from triad_tpu.parallel.tp import make_dp_tp_mesh, tp_param_specs
-        from triad_tpu.parallel.zero import zero1_state_shardings
-        from triad_tpu.train import (
+        from triad.core.config import OptimConfig
+        from triad.parallel.tp import make_dp_tp_mesh, tp_param_specs
+        from triad.parallel.zero import zero1_state_shardings
+        from triad.train import (
             OptimizerBank,
             ParamPartition,
             init_train_state,
@@ -249,10 +246,10 @@ class TestZero1TpComposition:
         assert acc.spec == P("data", "model")
 
     def test_step_matches_single_device(self, params):
-        from triad_tpu.core.config import LossConfig, OptimConfig
-        from triad_tpu.parallel.tp import make_dp_tp_mesh, tp_param_specs
-        from triad_tpu.parallel.zero import apply_zero1
-        from triad_tpu.train import (
+        from triad.core.config import LossConfig, OptimConfig
+        from triad.parallel.tp import make_dp_tp_mesh, tp_param_specs
+        from triad.parallel.zero import apply_zero1
+        from triad.train import (
             OptimizerBank,
             ParamPartition,
             StepFactory,
@@ -315,13 +312,13 @@ class TestMultisliceTP:
     single-device step exactly (values + updated params)."""
 
     def test_step_matches_single_device(self, params):
-        from triad_tpu.core.config import LossConfig, OptimConfig
-        from triad_tpu.parallel.tp import (
+        from triad.core.config import LossConfig, OptimConfig
+        from triad.parallel.tp import (
             make_multislice_tp_mesh,
             tp_param_specs,
         )
-        from triad_tpu.parallel.zero import apply_zero1
-        from triad_tpu.train import (
+        from triad.parallel.zero import apply_zero1
+        from triad.train import (
             OptimizerBank,
             ParamPartition,
             StepFactory,
@@ -383,8 +380,8 @@ class TestMultisliceTP:
         import dataclasses as dc
 
         from tests.test_trainer import tiny_config
-        from triad_tpu.core.config import MeshConfig
-        from triad_tpu.train.trainer import Trainer
+        from triad.core.config import MeshConfig
+        from triad.train.trainer import Trainer
 
         cfg = tiny_config(tmp_path)
         cfg = dc.replace(
@@ -402,7 +399,7 @@ class TestMultisliceTP:
         tr.train()
         import math
 
-        from triad_tpu.parallel.distributed import fetch
+        from triad.parallel.distributed import fetch
 
         t1 = float(fetch(tr.state.params["temperature"]))
         assert t0 != t1

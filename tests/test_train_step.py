@@ -7,9 +7,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from triad_tpu.core.config import LossConfig, OptimConfig
-from triad_tpu.models import init_triad_model
-from triad_tpu.train import (
+from triad.core.config import LossConfig, OptimConfig
+from triad.models import init_triad_model
+from triad.train import (
     OptimizerBank,
     ParamPartition,
     StepFactory,
@@ -110,59 +110,53 @@ def test_eval_loss_deterministic(setup):
     assert float(m1["train_loss"]) == float(m2["train_loss"])
 
 
-@pytest.mark.slow
-def test_joint_step_with_round2_kernels(setup):
-    """The round-2 opt-in kernel set — pallas pos-conv, x640 frontend
-    wave layout (inert on the conv frontend but validated), and the
-    custom-VJP chunked loss — runs the full joint step end-to-end in
-    interpret mode: finite loss, params move."""
+def test_joint_step_with_flash_attention():
+    """The flash attention kernel (interpret mode on CPU) with live
+    attention dropout in every encoder, plus the custom-VJP chunked
+    loss, runs the full joint step end-to-end: finite loss, params
+    move."""
     import dataclasses
 
-    from jax.experimental.pallas import tpu as pltpu
+    from triad.core.config import h100_model_config
 
+    flash = h100_model_config()
     model_cfg = small_model_config(visual_dropout_prob=0.0)
-    # tiny HuBERT geometry compatible with the pos-conv kernel
-    # (K % 8 == 0, CPG % 8 == 0): hidden 32, 4 groups, K=16.
-    model_cfg = dataclasses.replace(
-        model_cfg,
-        hubert=dataclasses.replace(
-            model_cfg.hubert,
-            posconv_impl="pallas",
-            num_conv_pos_embeddings=16,
-            num_conv_pos_embedding_groups=4,
-            frontend_wave_layout="x640",
-        ),
-    )
+    model_cfg = dataclasses.replace(model_cfg, **{
+        name: dataclasses.replace(
+            getattr(model_cfg, name),
+            attention_impl=getattr(flash, name).attention_impl,
+        )
+        for name in ("vit", "hubert", "text")
+    })
     loss_cfg = LossConfig(implementation="chunked_vjp", chunk_size=2)
     optim_cfg = OptimConfig(
         gradient_accumulation_steps=1,
         unfreeze_audio_step=0, unfreeze_text_step=0, unfreeze_vit_step=0,
     )
-    with pltpu.force_tpu_interpret_mode():
-        params = init_triad_model(model_cfg, jax.random.key(0))
-        bank = OptimizerBank(optim_cfg, ParamPartition(params), total_updates=10)
-        factory = StepFactory(model_cfg, loss_cfg, optim_cfg, bank)
-        state = init_train_state(params, bank, jax.random.key(1))
-        rng = np.random.default_rng(0)
-        av = {
-            "images": jnp.asarray(
-                rng.normal(size=(2, 28, 28, 3)).astype(np.float32)
-            ),
-            "audio": jnp.asarray(
-                rng.normal(size=(2, 1600)).astype(np.float32)
-            ),
-        }
-        tv = {
-            "images": jnp.asarray(
-                rng.normal(size=(2, 28, 28, 3)).astype(np.float32)
-            ),
-            "token_ids": jnp.asarray(rng.integers(1, 100, size=(2, 8))),
-            "text_mask": jnp.ones((2, 8), jnp.float32),
-        }
-        step = jax.jit(factory.make_step("joint"))
-        one = jnp.float32(1.0)
-        state2, metrics = step(state, av, tv, one, one)
-        loss = float(metrics["train_loss"])
+    params = init_triad_model(model_cfg, jax.random.key(0))
+    bank = OptimizerBank(optim_cfg, ParamPartition(params), total_updates=10)
+    factory = StepFactory(model_cfg, loss_cfg, optim_cfg, bank)
+    state = init_train_state(params, bank, jax.random.key(1))
+    rng = np.random.default_rng(0)
+    av = {
+        "images": jnp.asarray(
+            rng.normal(size=(2, 28, 28, 3)).astype(np.float32)
+        ),
+        "audio": jnp.asarray(
+            rng.normal(size=(2, 1600)).astype(np.float32)
+        ),
+    }
+    tv = {
+        "images": jnp.asarray(
+            rng.normal(size=(2, 28, 28, 3)).astype(np.float32)
+        ),
+        "token_ids": jnp.asarray(rng.integers(1, 100, size=(2, 8))),
+        "text_mask": jnp.ones((2, 8), jnp.float32),
+    }
+    step = jax.jit(factory.make_step("joint"))
+    one = jnp.float32(1.0)
+    state2, metrics = step(state, av, tv, one, one)
+    loss = float(metrics["train_loss"])
     assert np.isfinite(loss)
     assert float(state2.params["temperature"]) != float(
         state.params["temperature"]

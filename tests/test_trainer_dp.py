@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import jax
 
-from triad_tpu.core.config import MeshConfig
+from triad.core.config import MeshConfig
 from tests.test_trainer import tiny_config
 
 pytestmark = [pytest.mark.slow, pytest.mark.skipif(
@@ -17,7 +17,7 @@ pytestmark = [pytest.mark.slow, pytest.mark.skipif(
 
 
 def test_dp_trainer_end_to_end(tmp_path):
-    from triad_tpu.train.trainer import Trainer
+    from triad.train.trainer import Trainer
 
     cfg = tiny_config(tmp_path)
     cfg = dataclasses.replace(
@@ -36,7 +36,7 @@ def test_dp_trainer_end_to_end(tmp_path):
 
 
 def test_dp_rejects_indivisible_batch(tmp_path):
-    from triad_tpu.train.trainer import Trainer
+    from triad.train.trainer import Trainer
 
     cfg = tiny_config(tmp_path / "bad")
     cfg = dataclasses.replace(
@@ -51,7 +51,7 @@ def test_dp_rejects_indivisible_batch(tmp_path):
 def test_multislice_dp_trainer(tmp_path):
     """2 slices x 4 chips (virtual): batch shards over (replica, data),
     negatives gather across both axes — trains end-to-end."""
-    from triad_tpu.train.trainer import Trainer
+    from triad.train.trainer import Trainer
 
     cfg = tiny_config(tmp_path)
     cfg = dataclasses.replace(
@@ -74,7 +74,7 @@ def test_dp_sharded_retrieval_matches_single_device(tmp_path):
     trainer's on the same params + subset."""
     import json
 
-    from triad_tpu.train.trainer import Trainer
+    from triad.train.trainer import Trainer
 
     def build(mesh_cfg, out):
         cfg = tiny_config(out)

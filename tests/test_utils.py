@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from triad_tpu.utils import (
+from triad.utils import (
     StepTimer,
     nonfinite_paths,
     skip_nonfinite_updates,

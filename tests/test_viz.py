@@ -5,8 +5,8 @@ tests, viz.py:345-379, made into real assertions)."""
 import numpy as np
 import pytest
 
-from triad_tpu.data.images import imagenet_normalize
-from triad_tpu.viz import (
+from triad.data.images import imagenet_normalize
+from triad.viz import (
     AudioVisualizer,
     TextVisualizer,
     denormalize_frame,

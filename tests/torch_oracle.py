@@ -1,8 +1,8 @@
 """Independent torch (CPU) oracle for the reference loss math.
 
-Implements the training-loss formulas of /root/reference/src/model.py from
+Implements the training-loss formulas of reference src/model.py from
 the structural analysis in SURVEY.md §2.1 as an *independent check* for the
-triad_tpu ops. Test-only — never imported by the framework.
+triad ops. Test-only — never imported by the framework.
 
 Citations: AV sims model.py:370-392, AV regs 394-428, AV InfoNCE 430-472,
 TV sims 490-514, TV regs 516-542, TV InfoNCE 544-593,

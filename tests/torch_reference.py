@@ -2,7 +2,7 @@
 
 The end-to-end parity oracle (VERDICT round 1, item 3): the full
 reference model — HF HuBERT + HF DistilBERT + a torch.hub-layout DINOv2
-with peft LoRA — wired exactly as /root/reference/src/model.py does,
+with peft LoRA — wired exactly as reference src/model.py does,
 with the reference's loss code path (tests/torch_oracle.py, which cites
 model.py:370-608 line by line). Test/harness-only — never imported by
 the framework.
@@ -14,7 +14,7 @@ reimplements that exact module *in the hub state-dict layout*
 cls_token/pos_embed/register_tokens/patch_embed.proj/norm) so that
 (a) peft targets "attn.qkv"/"attn.proj" exactly as the reference's
 LoraConfig does (model.py:227-248), and (b) ``state_dict()`` round-trips
-through ``triad_tpu.models.reference_import.port_reference_state_dict``
+through ``triad.models.reference_import.port_reference_state_dict``
 — proving the real checkpoint-import path end-to-end.
 
 Audio normalize quirk reproduced: the reference runs the HF processor on
@@ -292,7 +292,7 @@ class TorchReferenceModel(nn.Module):
 
 def build_reference_model(model_cfg, seed: int = 0,
                           randomize_lora: bool = True) -> TorchReferenceModel:
-    """Full torch reference model from a triad_tpu ModelConfig (HF
+    """Full torch reference model from a triad ModelConfig (HF
     modules from config — no network), seeded.
 
     ``randomize_lora``: peft inits lora_B to zeros (adapter = no-op);
@@ -373,6 +373,6 @@ def build_reference_model(model_cfg, seed: int = 0,
 
 def port_to_triad(model: TorchReferenceModel, model_cfg):
     """state_dict -> TriadModel params via the production import path."""
-    from triad_tpu.models.reference_import import port_reference_state_dict
+    from triad.models.reference_import import port_reference_state_dict
 
     return port_reference_state_dict(model.state_dict(), model_cfg)
